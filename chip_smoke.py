@@ -6,22 +6,39 @@
 Phases, each printing its result and its seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and what PyTorch sees;
-2. build: the dense-block kernel compiled with nvcc for sm_90a (ptxas report);
-3. kernel: the kernel held against its plain PyTorch version at the serving
-   shape (B=2, 416x416x32) in f32 (TF32 off) and bf16, and timed with CUDA
-   events beside the plain version and a cuDNN composition of the same block;
+2. build: the four kernel libraries compiled with nvcc for sm_90a, all at
+   once (ptxas reports): K2 dense_block, K1 dense_block_s2d, P int8_gemm,
+   K3 conv_i8;
+3. kernel: each kernel held against its plain PyTorch version at the shapes
+   the main paths give it, and timed with CUDA events beside the plain
+   version, a library call where one computes the same function, and its
+   bound: K2 at (2, 416, 416, 32) and K1 at (2, 208, 208, 128) in f32 (TF32
+   off) and bf16, with K2 also held on K1's inputs (C = 128, the fast
+   forward's shape); P at the probe's (2048, 128) x (128, 128), exact; K3 at
+   the trunk's level 5 (2, 208, 208, 640) -> 128 and conv_first
+   (2, 208, 208, 4) -> 128, exact;
 4. serve: 4 synthetic Poisson detxy FITS (403x411, so padding is exercised)
    served by `serve_files` through `InferenceEngine` at full esr_gen width and
    depth (416^2 -> 832^2) with the trained weights, in f32 and in bf16. The
    launch count is reset just before each run and read just after; the f32
    products are held against a forward on the card through the plain dense
-   block, called explicitly here.
+   block, called explicitly here;
+5. s2d: the same 4 prepared tiles through `make_s2d_sr_forward` (dense
+   blocks on K1) and `make_fast_rrdb_forward` (on K2) in f32 and bf16, at
+   batch 2, against that plain forward; and `make_s2d_dn_forward` at 416^2
+   with seeded weights against the plain DN forward;
+6. serve-int8: the same 4 files served through `InferenceEngine(quantize=
+   True)` in bf16 (int8 convolutions on K3, P's exactness check at build),
+   held to the 40 dB int8 gate against the f32 plain forward;
+7. profile: one warm batch of each serving mode (model f32 and bf16, S2D
+   bf16, int8) traced with torch.profiler: device-busy time per image, idle
+   share, and busy time by kernel group.
 
 The last two lines are a `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
 card it exits non-zero at once and prints no result. All products go to a
-temporary directory; the only file written inside the checkout is the
-kernel library under build/torch_kernels/.
+temporary directory; the only files written inside the checkout are the
+kernel libraries under build/torch_kernels/.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,8 +63,10 @@ SERVE_FILES = 4
 SERVE_BATCH = 2
 NATIVE_HW = (411, 403)  # numpy (NAXIS2, NAXIS1) of an EPIC-pn detxy image
 KERNEL_SHAPE = (2, 416, 416, 32)  # the trunk's dense-block input when serving
+S2D_SHAPE = (2, 208, 208, 128)  # the S2D trunk's dense-block input when serving
+K3_SHAPES = {"level5": ((2, 208, 208, 640), 128), "conv_first": ((2, 208, 208, 4), 128)}
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
 # tolerances of kernel vs plain version: f32 sums in another order (TF32 off);
 # bf16 rounds each level's activations to bf16 in both, so a few bf16 ulps
@@ -54,8 +74,14 @@ F32_ATOL = 1e-4
 BF16_ULPS = 4 * 2.0**-8
 # served f32 predictions vs the plain-block forward, relative to hr clamp_max
 SERVE_F32_RTOL = 2e-5
-# served bf16 predictions vs the f32 plain forward, relative to hr clamp_max
-SERVE_BF16_RTOL = 0.1
+# served bf16 predictions vs the f32 plain forward, relative to hr clamp_max:
+# 4 bf16 ulps at the top of the range
+SERVE_BF16_RTOL = 4 * 2.0**-8
+# int8 products vs the f32 plain forward: the JAX package's gate
+INT8_PSNR_DB = 40.0
+# the S2D DN forward (f32, seeded weights) vs the plain DN forward, [0, 1] scale
+DN_ATOL = 2e-5
+TIMING_BUDGET_MS = 1000.0  # per timed function, after its first call
 
 
 def say(msg: str) -> None:
@@ -81,13 +107,20 @@ def phase_device() -> dict:
 
 
 def phase_build():
-    from xmm_superres_denoise_torch.ops import dense_block as db
+    from xmm_superres_denoise_torch.ops import cuda_build
 
-    lib, log, secs = db.build()
-    say(f"[build] nvcc {' '.join(db.NVCC_FLAGS)} -> {lib.name} ({secs:.2f} s)")
-    for line in log.splitlines():
-        if line.strip():
-            say(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    say(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)}, {len(cuda_build.LIBRARIES)} "
+        "libraries at once")
+    with ThreadPoolExecutor(len(cuda_build.LIBRARIES)) as pool:
+        builds = {n: pool.submit(cuda_build.build, n) for n in cuda_build.LIBRARIES}
+    for name, fut in builds.items():
+        lib, log, secs = fut.result()
+        say(f"[build] {name} -> {lib.name} ({secs:.2f} s)")
+        for line in log.splitlines():
+            if line.strip():
+                say(f"[build]   {line.strip()}")
+    say(f"[build] all ({time.perf_counter() - t0:.2f} s)")
 
 
 def _block_inputs(shape, dtype, device, seed=0):
@@ -115,17 +148,33 @@ def _library_block(x_nchw, oihw, biases):
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+    """Mean CUDA-event time of up to `iters` calls after `warmup` calls; a
+    call slower than TIMING_BUDGET_MS / iters is timed fewer times (at
+    least twice) so the slow plain versions stay within the smoke's time."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    first = start.elapsed_time(end)
+    if first * iters > TIMING_BUDGET_MS:
+        warmup, iters = 0, max(2, int(TIMING_BUDGET_MS / first))
+    for _ in range(warmup - 1):
+        fn()
+    torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(bound ms, "operations" or "bytes") at the published peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_kernel(dtype) -> dict:
@@ -157,13 +206,13 @@ def phase_kernel(dtype) -> dict:
     esize = x.element_size()
     flops = b * h * w * 9 * c * c * sum(range(1, 6)) * 2
     nbytes = esize * (2 * x.numel() + sum(t.numel() for t in ws))
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    bound_ms, bound_by = _bound(flops, nbytes, dtype)
     name = "f32" if dtype == torch.float32 else "bf16"
     say(
         f"[kernel] dense_block {name} {KERNEL_SHAPE}: max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}, max|plain| {scale:.3f}), max|cudnn-plain| {lib_err:.3e}; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cudnn {library_ms:.4f} ms, "
-        f"bound {max(t_ops, t_bytes) * 1e3:.4f} ms "
+        f"bound {bound_ms:.4f} ms "
         f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
         f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved) "
         f"({time.perf_counter() - t0:.2f} s)"
@@ -179,10 +228,9 @@ def phase_kernel(dtype) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
-        "ok": True,
     }
 
 
@@ -211,9 +259,10 @@ def _write_inputs(directory: Path) -> list:
 
 
 def plain_forward(model, x):
-    """The SR generator's forward with every dense block on its plain
-    version: the reference the served f32 predictions are held against."""
-    from xmm_superres_denoise_torch.models.rrdb import conv_nhwc, pixel_shuffle
+    """The SR (or DN) generator's forward with every dense block on its
+    plain version: the reference the served f32 predictions are held
+    against."""
+    from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_DN, conv_nhwc, pixel_shuffle
     from xmm_superres_denoise_torch.ops.dense_block import dense_block_reference
 
     trunk = model.trunk
@@ -225,6 +274,8 @@ def plain_forward(model, x):
             t = dense_block_reference(t, *rdb.flat_params())
         t = t * 0.2 + r_in
     fea = fea + conv_nhwc(trunk.trunk_conv, t)
+    if isinstance(model, GeneratorRRDB_DN):
+        return torch.clamp(conv_nhwc(model.conv_last, fea) + x, 0.0, 1.0)
     for i in range(model.num_upsample):
         fea = conv_nhwc(getattr(model, f"upconv_{i}"), fea)
         fea = pixel_shuffle(F.leaky_relu(fea, 0.01), 2)
@@ -232,7 +283,7 @@ def plain_forward(model, x):
     return torch.clamp(conv_nhwc(model.conv_last, fea), 0.0, 1.0)
 
 
-def phase_serve(tmp: Path) -> dict:
+def phase_serve(tmp: Path):
     from xmm_superres_denoise_torch.config import load_run_config
     from xmm_superres_denoise_torch.infer.run_file import (
         InferenceEngine,
@@ -322,7 +373,355 @@ def phase_serve(tmp: Path) -> dict:
         raise AssertionError(f"f32 serve disagrees with the plain forward: {err32}")
     if not err16 <= SERVE_BF16_RTOL * hr_max:
         raise AssertionError(f"bf16 serve too far from f32: {err16}")
+    ctx = {"files": files, "raw": raw, "ref": ref, "hr_max": hr_max, "params": params,
+           "engine": f32_engine, "ds_cfg": ds_cfg, "model_cfg": model_cfg,
+           "profile": {f"model {k} (K2)": e.predict for k, e in engines.items()}}
+    return launches, ctx
+
+
+def phase_kernel_s2d(dtype) -> dict:
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block
+    from xmm_superres_denoise_torch.ops.dense_block_s2d import (
+        dense_block_s2d,
+        dense_block_s2d_reference,
+        pack_weights,
+    )
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    x, flat = _block_inputs(S2D_SHAPE, dtype, dev)
+    ws, bs = flat[0::2], flat[1::2]
+    packed = pack_weights(ws, bs, dtype)
+    b, h, w, c = S2D_SHAPE
+    with torch.inference_mode(), true_f32():
+        out = dense_block_s2d(x, packed)
+        ref = dense_block_s2d_reference(x, ws, bs)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = F32_ATOL * max(1.0, scale) if dtype == torch.float32 else BF16_ULPS * scale
+        finite = bool(torch.isfinite(out).all())
+        # K2 at C = 128, as make_fast_rrdb_forward runs it, on the same inputs
+        k2_out = dense_block(x, *flat)
+        k2_err = (k2_out.float() - ref.float()).abs().max().item()
+        k2_finite = bool(torch.isfinite(k2_out).all())
+        ms = _time_ms(lambda: dense_block_s2d(x, packed), iters=10)
+        k2_ms = _time_ms(lambda: dense_block(x, *flat), iters=10)
+        plain_ms = _time_ms(lambda: dense_block_s2d_reference(x, ws, bs), iters=5, warmup=1)
+        x_nchw = x.permute(0, 3, 1, 2)
+        oihw = [wk.permute(3, 2, 0, 1).contiguous() for wk in ws]
+        lib_err = (_library_block(x_nchw, oihw, bs).permute(0, 2, 3, 1).float()
+                   - ref.float()).abs().max().item()
+        library_ms = _time_ms(lambda: _library_block(x_nchw, oihw, bs), iters=10)
+    flops = b * h * w * 9 * c * c * sum(range(1, 6)) * 2  # as computed, S2D zeros included
+    nominal = flops / 4  # the 416^2 x 32 block it stands for
+    nbytes = x.element_size() * (2 * x.numel() + sum(t.numel() for t in flat))
+    bound_ms, bound_by = _bound(flops, nbytes, dtype)
+    name = "f32" if dtype == torch.float32 else "bf16"
+    say(
+        f"[kernel] dense_block_s2d {name} {S2D_SHAPE}: max|kernel-plain| {err:.3e} "
+        f"(tol {tol:.3e}, max|plain| {scale:.3f}), max|cudnn-plain| {lib_err:.3e}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cudnn {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP as computed, {nominal / 1e9:.1f} "
+        f"nominal, {nbytes / 1e6:.1f} MB; achieved {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"S2D, {nominal / (ms * 1e-3) / 1e12:.2f} TFLOP/s nominal); dense_block (K2, the fast "
+        f"forward's block) on the same inputs: max|kernel-plain| {k2_err:.3e} (same tol), "
+        f"{k2_ms:.4f} ms ({time.perf_counter() - t0:.2f} s)"
+    )
+    if not finite or not err <= tol:
+        raise AssertionError(f"dense_block_s2d {name} disagrees with its plain version: {err} > {tol}")
+    if not k2_finite or not k2_err <= tol:
+        raise AssertionError(f"dense_block {name} at C=128 disagrees with the plain version: "
+                             f"{k2_err} > {tol}")
+    return {
+        "name": f"dense_block_s2d[{name}]",
+        "route": "cuda",
+        "source": "xmm_superres_denoise_torch/csrc/dense_block_s2d.cu",
+        "replaces": "xmm_superres_denoise_tpu/ops/pallas_dense_block.py:158",
+        "launches": None,  # filled from the s2d run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def phase_kernel_p() -> dict:
+    from xmm_superres_denoise_torch.ops.int8_gemm import (
+        PROBE_SHAPE,
+        int8_gemm,
+        int8_gemm_reference,
+        probe_operands,
+    )
+
+    t0 = time.perf_counter()
+    a, b = probe_operands("cuda:0")
+    m, k, n = PROBE_SHAPE
+    out = int8_gemm(a, b).cpu()
+    ref = int8_gemm_reference(a.cpu(), b.cpu())  # int64 on the host
+    exact = torch.equal(out, ref) and torch.equal(int8_gemm_reference(a, b).cpu(), ref)
+    err = float((out.long() - ref.long()).abs().max())
+    ms = _time_ms(lambda: int8_gemm(a, b), iters=50)
+    plain_ms = _time_ms(lambda: int8_gemm_reference(a, b), iters=50)
+    try:
+        lib = torch._int_mm(a, b)
+        lib_mm = lambda: torch._int_mm(a, b)  # noqa: E731
+    except RuntimeError:  # cuBLASLt wants the second operand column-major
+        b_col = b.t().contiguous().t()
+        lib = torch._int_mm(a, b_col)
+        lib_mm = lambda: torch._int_mm(a, b_col)  # noqa: E731
+    lib_exact = torch.equal(lib.cpu(), ref)
+    library_ms = _time_ms(lib_mm, iters=50)
+    flops = 2 * m * k * n
+    nbytes = m * k + k * n + 4 * m * n
+    bound_ms, bound_by = _bound(flops, nbytes, torch.int8)
+    say(
+        f"[kernel] int8_gemm {tuple(a.shape)} x {tuple(b.shape)}: exact {exact} (max|diff| "
+        f"{err:.0f}), torch._int_mm exact {lib_exact}; kernel {ms:.4f} ms, plain (f64 matmul on "
+        f"the card) {plain_ms:.4f} ms, torch._int_mm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G int8 ops) "
+        f"({time.perf_counter() - t0:.2f} s)"
+    )
+    if not exact:
+        raise AssertionError("int8_gemm sums are not exact")
+    return {
+        "name": "int8_gemm",
+        "route": "cuda",
+        "source": "xmm_superres_denoise_torch/csrc/int8_gemm.cu",
+        "replaces": "scripts/device_probe_pallas_int8.py:24",
+        "launches": None,  # filled from the serve-int8 run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def phase_kernel_k3() -> dict:
+    from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8, conv_i8_reference, pack_weights
+
+    entry = None
+    for which, (shape, cout) in K3_SHAPES.items():
+        t0 = time.perf_counter()
+        g = np.random.default_rng(len(which))
+        cin = shape[-1]
+        x8 = torch.from_numpy(g.integers(-127, 128, shape).astype(np.int8)).to("cuda:0")
+        w8 = torch.from_numpy(g.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)).to("cuda:0")
+        packed = pack_weights(w8, "cuda:0")
+        out = conv_i8(x8, packed)
+        ref = conv_i8_reference(x8, w8)  # float64 on the card, exact
+        err = float((out.long() - ref.long()).abs().max())
+        exact = torch.equal(out, ref)
+        ms = _time_ms(lambda: conv_i8(x8, packed), iters=20)
+        plain_ms = _time_ms(lambda: conv_i8_reference(x8, w8), iters=3, warmup=1)
+        b, h, w, _ = shape
+        flops = 2 * b * h * w * 9 * cin * cout
+        nbytes = x8.numel() + w8.numel() + 4 * b * h * w * cout
+        bound_ms, bound_by = _bound(flops, nbytes, torch.int8)
+        say(
+            f"[kernel] conv_i8 {which} {shape} -> {cout}: exact {exact} (max|diff| {err:.0f}, "
+            f"max|sum| {int(ref.abs().max())}); kernel {ms:.4f} ms, plain (f64 conv) "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} G "
+            f"int8 ops, {nbytes / 1e6:.1f} MB; achieved {flops / (ms * 1e-3) / 1e12:.1f} TOP/s); "
+            f"no PyTorch call computes an s8 convolution ({time.perf_counter() - t0:.2f} s)"
+        )
+        if not exact:
+            raise AssertionError(f"conv_i8 {which} sums are not exact")
+        if entry is None:  # the level-5 shape carries the JSON entry
+            entry = {
+                "name": "conv_i8",
+                "route": "cuda",
+                "source": "xmm_superres_denoise_torch/csrc/conv_i8.cu",
+                "replaces": "xmm_superres_denoise_tpu/ops/int8_forward.py:125",
+                "launches": None,  # filled from the serve-int8 run
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            }
+    return entry
+
+
+def _batched(fwd, x):
+    return torch.cat([fwd(x[i : i + SERVE_BATCH]) for i in range(0, len(x), SERVE_BATCH)])
+
+
+def _forward_ms(fwd, x) -> float:
+    """CUDA-event time of one warm batch, per image."""
+    batch = x[:SERVE_BATCH]
+    return _time_ms(lambda: fwd(batch), iters=3, warmup=1) / SERVE_BATCH
+
+
+def phase_s2d(ctx) -> dict:
+    from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block, make_fast_rrdb_forward
+    from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_dn_forward, make_s2d_sr_forward
+
+    dev = torch.device("cuda:0")
+    engine, hr_max, ref = ctx["engine"], ctx["hr_max"], ctx["ref"]
+    model = GeneratorRRDB_SR()
+    params = ROOT / "docs/convergence_esr_gen/best_params.npz"
+    n_batches = math.ceil(SERVE_FILES / SERVE_BATCH)
+    launches = {}
+    with torch.inference_mode():
+        x = engine.prepare(torch.from_numpy(ctx["raw"]).to(dev))
+        for make, counter, label in ((make_s2d_sr_forward, dense_block_s2d, "s2d"),
+                                     (make_fast_rrdb_forward, dense_block, "fast")):
+            for dtype in (torch.float32, torch.bfloat16):
+                t0 = time.perf_counter()
+                name = "f32" if dtype == torch.float32 else "bf16"
+                fwd = make(model, params, dtype, device=dev)
+                torch.cuda.synchronize()
+                counter.launches = 0
+                pred = _batched(fwd, x)
+                torch.cuda.synchronize()
+                n = counter.launches
+                pred = engine.normalizer.denormalize_hr(pred.float().clamp(0, 1))[..., 0].cpu().numpy()
+                err = float(np.abs(pred - ref).max())
+                mse = float(np.mean(((pred - ref) / hr_max) ** 2))
+                ms = _forward_ms(fwd, x)
+                say(
+                    f"[s2d] {label} SR {name}: {n} {counter.__name__} launches for {n_batches} "
+                    f"batches of {SERVE_BATCH} (expected {60 * n_batches}); vs plain-block "
+                    f"forward max|diff| {err / hr_max:.3e} x hr_max, PSNR "
+                    f"{10 * np.log10(1.0 / max(mse, 1e-30)):.2f} dB; {ms:.3f} ms/image "
+                    f"(CUDA events, warm batch) ({time.perf_counter() - t0:.2f} s)"
+                )
+                tol = SERVE_F32_RTOL if dtype == torch.float32 else SERVE_BF16_RTOL
+                if n != 60 * n_batches:
+                    raise AssertionError(f"{label} {name}: {n} launches, expected {60 * n_batches}")
+                if not (np.isfinite(pred).all() and err <= tol * hr_max):
+                    raise AssertionError(f"{label} {name} forward too far from the plain forward: {err}")
+                if label == "s2d":
+                    launches[name] = n
+                    if dtype == torch.bfloat16:
+                        ctx["profile"]["S2D bf16 (K1)"] = fwd
+
+        t0 = time.perf_counter()
+        dn = GeneratorRRDB_DN()
+        dn.reset_parameters(torch.Generator().manual_seed(0))
+        fwd = make_s2d_dn_forward(dn, dn.state_dict(), torch.float32, device=dev)
+        dn = dn.to(dev)
+        dense_block_s2d.launches = 0
+        got = _batched(fwd, x)
+        n = dense_block_s2d.launches
+        with true_f32():
+            want = _batched(lambda t: plain_forward(dn, t), x)
+        err = (got - want).abs().max().item()
+        say(
+            f"[s2d] S2D DN f32 416^2 -> 416^2, seeded weights: {n} dense_block_s2d launches; "
+            f"vs plain DN forward max|diff| {err:.3e} on [0, 1] (tol {DN_ATOL:.0e}) "
+            f"({time.perf_counter() - t0:.2f} s)"
+        )
+        if n != 60 * n_batches or not err <= DN_ATOL:
+            raise AssertionError(f"S2D DN forward: {n} launches, max|diff| {err}")
     return launches
+
+
+def phase_serve_int8(ctx, tmp: Path) -> dict:
+    from xmm_superres_denoise_torch.infer.run_file import InferenceEngine, serve_files
+    from xmm_superres_denoise_torch.io.fits import read_image
+    from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8
+    from xmm_superres_denoise_torch.ops.int8_gemm import int8_gemm
+
+    t0 = time.perf_counter()
+    hr_max, ref = ctx["hr_max"], ctx["ref"]
+    n_batches = math.ceil(SERVE_FILES / SERVE_BATCH)
+    expected = 64 * n_batches
+    engine = InferenceEngine(ctx["model_cfg"], ctx["ds_cfg"], ctx["params"], dtype=torch.bfloat16,
+                             quantize=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    conv_i8.launches = int8_gemm.launches = 0
+    products = serve_files(ctx["files"], engine, tmp / "int8", hr_exp_ks=100.0,
+                           model_name="esr_gen", batch_size=SERVE_BATCH)
+    torch.cuda.synchronize()
+    launches = {"conv_i8": conv_i8.launches, "int8_gemm": int8_gemm.launches}
+    serve_s = time.perf_counter() - t1
+    pred = np.stack([read_image(p)[0] for _, p in products])
+    mse = float(np.mean(((pred - ref) / hr_max) ** 2))
+    psnr = 10 * np.log10(1.0 / max(mse, 1e-30))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    engine.run_tiles(ctx["raw"], batch_size=SERVE_BATCH)
+    torch.cuda.synchronize()
+    engine_ms = (time.perf_counter() - t2) * 1e3 / SERVE_FILES
+    say(
+        f"[serve-int8] bf16 epilogues: {SERVE_FILES} files in {serve_s:.3f} s incl. calibration "
+        f"on the first batch and FITS read+write; conv_i8 launches {launches['conv_i8']} "
+        f"(expected {expected}), int8_gemm launches {launches['int8_gemm']} (the exactness check "
+        f"at build); {len(engine.int8_scales)} scale keys; products vs the f32 plain forward "
+        f"max|diff| {np.abs(pred - ref).max() / hr_max:.3e} x hr_max, PSNR {psnr:.2f} dB on the "
+        f"hr_max scale (gate {INT8_PSNR_DB:.0f} dB); engine alone (run_tiles, warm, host clock "
+        f"incl. transfers) {engine_ms:.3f} ms/image ({time.perf_counter() - t0:.2f} s)"
+    )
+    if launches["conv_i8"] != expected or launches["int8_gemm"] < 1:
+        raise AssertionError(f"int8 serve launches {launches}, expected {expected} conv_i8")
+    if not (np.isfinite(pred).all() and pred.shape == ref.shape and psnr >= INT8_PSNR_DB):
+        raise AssertionError(f"int8 serve below the gate: PSNR {psnr:.2f} dB")
+    ctx["profile"]["int8 bf16 (K3)"] = engine.predict
+    return launches
+
+
+PROFILE_GROUPS = {
+    "dense_level_kernel": "K2/K1-f32 direct conv",
+    "conv3x3_kernel": "K1-bf16 / K3 implicit GEMM",
+    "int8_gemm_kernel": "P int8 GEMM",
+}
+
+
+def _profile_group(name: str) -> str:
+    for key, label in PROFILE_GROUPS.items():
+        if key in name:
+            return label
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass", "sm90")):
+        return "cuDNN/cuBLAS convolution or GEMM"
+    return "elementwise, copies and the rest"
+
+
+def phase_profile(ctx) -> None:
+    """One warm batch of each serving mode traced with torch.profiler: the
+    device's busy time per image (the one yardstick across modes), its idle
+    share of the kernels' span, and the busy time by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = ctx["engine"].prepare(torch.from_numpy(ctx["raw"][:SERVE_BATCH]).to("cuda:0"))
+    for mode, fwd in ctx["profile"].items():
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fwd(x)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fwd(x)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not kernels:
+            raise AssertionError(f"{mode}: the profiler saw no CUDA kernel")
+        groups: dict = {}
+        for e in kernels:
+            g = groups.setdefault(_profile_group(e.name), [0.0, 0])
+            g[0] += e.time_range.elapsed_us()
+            g[1] += 1
+        busy = sum(us for us, _ in groups.values())
+        span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+        parts = ", ".join(f"{g} {us / 1e3 / SERVE_BATCH:.3f} ms ({n} launches)"
+                          for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
+        say(
+            f"[profile] {mode}: device busy {busy / 1e3 / SERVE_BATCH:.3f} ms/image, idle "
+            f"{1 - busy / span:.1%} of the kernels' span; {parts} "
+            f"({time.perf_counter() - t0:.2f} s)"
+        )
 
 
 def main() -> int:
@@ -335,10 +734,20 @@ def main() -> int:
         device = phase_device()
         phase_build()
         kernels = [phase_kernel(torch.float32), phase_kernel(torch.bfloat16)]
+        s2d_kernels = [phase_kernel_s2d(torch.float32), phase_kernel_s2d(torch.bfloat16)]
+        p_entry, k3_entry = phase_kernel_p(), phase_kernel_k3()
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
-            launches = phase_serve(Path(tmp))
+            launches, ctx = phase_serve(Path(tmp))
+            s2d_launches = phase_s2d(ctx)
+            int8_launches = phase_serve_int8(ctx, Path(tmp))
+        phase_profile(ctx)
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
+        for entry, name in zip(s2d_kernels, ("f32", "bf16")):
+            entry["launches"] = s2d_launches[name]
+        p_entry["launches"] = int8_launches["int8_gemm"]
+        k3_entry["launches"] = int8_launches["conv_i8"]
+        kernels += [*s2d_kernels, p_entry, k3_entry]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
+
 from xmm_superres_denoise_torch.config import schema as tcfg
 from xmm_superres_denoise_torch.infer.run_file import (
     InferenceEngine,
@@ -193,8 +195,8 @@ def test_bf16_engine_tracks_f32(flat):
 @pytest.mark.parametrize(
     "kw,err",
     [
-        (dict(quantize=True), NotImplementedError),
-        (dict(int8_scales={}), NotImplementedError),
+        (dict(quantize=True, int8_scales={"conv_first": 1.0}), ValueError),
+        (dict(int8_scales={}), ValueError),
         (dict(mesh=object()), NotImplementedError),
         (dict(dtype=torch.float16), ValueError),
         (dict(crop_p=0.0), ValueError),

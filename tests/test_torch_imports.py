@@ -49,7 +49,11 @@ _IMPORT = re.compile(
 
 
 @pytest.mark.parametrize(
-    "path", sorted(str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), *PORT.rglob("*.cu")])
+    "path",
+    sorted(
+        str(p.relative_to(ROOT))
+        for p in [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cuh")]
+    ),
 )
 def test_port_sources_name_no_jax_package(path):
     text = (ROOT / path).read_text()
@@ -81,3 +85,4 @@ def test_chip_smoke_alone_exits_nonzero(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+

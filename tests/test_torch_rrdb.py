@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
+
 from xmm_superres_denoise_torch.config.schema import ModelCfg
 from xmm_superres_denoise_torch.models.registry import build_model
 from xmm_superres_denoise_torch.models.rrdb import (

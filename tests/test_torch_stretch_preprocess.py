@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
+
 from xmm_superres_denoise_torch.ops import preprocess as tp
 from xmm_superres_denoise_torch.ops import stretch as ts
 from xmm_superres_denoise_torch.ops.precision import true_f32

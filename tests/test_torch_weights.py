@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
+
 from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
 from xmm_superres_denoise_torch.utils.weights import params_from_flax
 

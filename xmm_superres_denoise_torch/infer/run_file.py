@@ -4,11 +4,14 @@ The port of the JAX package's `infer/run_file.py`. The engine's
 pipeline is the JAX one, step for step: mask -> pad -> (crop) -> normalize
 -> model -> clip -> denormalize. PyTorch runs it eagerly on `device`
 (`cuda:0` unless the caller asks for the CPU); the model's dense blocks
-run on the hand-written kernel when the device is a card.
+run on the hand-written kernel when the device is a card. `quantize=True`
+serves the RRDB models through the int8 space-to-depth forward
+(`ops/int8_forward.py`, every int8 convolution on the K3 kernel).
 
-Left out of this slice, and refused loudly rather than ignored: int8
-serving (`quantize`, `int8_scales`), the device mesh (`mesh`), the watch
-daemon and the HTTP server. Products are FITS only: no PNG plots.
+Left out of this slice, and refused loudly rather than ignored: the device
+mesh (`mesh`), the watch daemon and the HTTP server. Fingerprint-bound
+scales files belong to the CLI slice. Products are FITS only: no PNG
+plots.
 """
 
 from __future__ import annotations
@@ -45,6 +48,13 @@ class InferenceEngine:
     the parity configuration and runs with TF32 off (`ops/precision.py`).
     `crop_p` < 1 crops the padded input to that fraction before
     normalization, origin per `dataset_config.crop_mode`.
+
+    `quantize=True` serves through the statically calibrated w8a8 S2D
+    forward (`ops/int8_forward.py`) with epilogues in `dtype`. Activation
+    scales are calibrated lazily from the first batch passed to the engine,
+    or taken from `int8_scales` (a `calibrate_int8_scales` dict, the same
+    JSON the JAX package writes); after first use they are in
+    `self.int8_scales`. Only the RRDB generators quantise.
     """
 
     def __init__(
@@ -60,11 +70,8 @@ class InferenceEngine:
         mesh=None,
         device: Union[str, torch.device] = "cuda:0",
     ):
-        if quantize or int8_scales is not None:
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP.md Queue 1 item 8, "
-                "Queue 2 K3)"
-            )
+        if int8_scales is not None and not quantize:
+            raise ValueError("int8_scales is for quantize=True")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported yet (ROADMAP.md Queue 1, "
@@ -88,6 +95,21 @@ class InferenceEngine:
             model_config, (self.lr_res, self.lr_res), (self.hr_res, self.hr_res)
         )
         model.load_state_dict(params)
+        self.quantize = bool(quantize)
+        self.int8_scales = dict(int8_scales) if int8_scales is not None else None
+        self._forward_i8 = None
+        if self.quantize:
+            from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
+            from ..ops.int8_forward import check_scales
+
+            if not isinstance(model, (GeneratorRRDB_SR, GeneratorRRDB_DN)):
+                raise ValueError(
+                    "quantize=True is supported for the RRDB models only "
+                    f"(got {type(model).__name__})"
+                )
+            if self.int8_scales is not None:
+                check_scales(model, self.int8_scales)
+            self._f32_params = params
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.mask = None
         if det_mask is not None:
@@ -109,9 +131,28 @@ class InferenceEngine:
             x = crop(x, *self._crop_args)
         return self.normalizer.normalize_lr(x[..., None])
 
+    def _ensure_int8(self, x: torch.Tensor) -> None:
+        """Quantized path: calibrate the scales from this prepared batch
+        (unless given) and build the int8 forward, once."""
+        if self._forward_i8 is not None:
+            return
+        from ..ops.int8_forward import calibrate_int8_scales, make_int8_s2d_forward
+
+        if self.int8_scales is None:
+            self.int8_scales = calibrate_int8_scales(
+                self.model, self._f32_params, x, device=self.device
+            )
+        self._forward_i8 = make_int8_s2d_forward(
+            self.model, self._f32_params, dtype=self.dtype,
+            scales=self.int8_scales, device=self.device,
+        )
+
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC input -> model output clipped to [0, 1], f32."""
-        if self.dtype == torch.float32:
+        if self.quantize:
+            self._ensure_int8(x)
+            pred = self._forward_i8(x).float()
+        elif self.dtype == torch.float32:
             with true_f32():
                 pred = self.model(x)
         else:

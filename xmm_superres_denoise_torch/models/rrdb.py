@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dense_block import dense_block
+from ..ops.precision import lrelu, scalar_like
 
 Tensor = torch.Tensor
 
@@ -49,9 +50,26 @@ def pixel_shuffle(x: Tensor, r: int = 2) -> Tensor:
     return x.reshape(n, h * r, w * r, c)
 
 
+def pixel_unshuffle(x: Tensor, r: int = 2) -> Tensor:
+    """Inverse of :func:`pixel_shuffle`: (N, H, W, C) -> (N, H/r, W/r, C*r*r),
+    out[n, h, w, c*r*r + i*r + j] = in[n, h*r+i, w*r+j, c]."""
+    n, hr, wr, c = x.shape
+    h, w = hr // r, wr // r
+    x = x.reshape(n, h, r, w, r, c).permute(0, 1, 3, 5, 2, 4)  # n, h, w, c, i, j
+    return x.reshape(n, h, w, c * r * r)
+
+
 def conv_nhwc(conv: nn.Conv2d, x: Tensor) -> Tensor:
     """Apply an OIHW `nn.Conv2d` to an NHWC tensor through its NCHW view."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def conv3x3_nhwc(x: Tensor, w_oihw: Tensor, b: Tensor) -> Tensor:
+    """SAME 3x3 convolution of an NHWC tensor with OIHW weights, through the
+    NCHW view (cuDNN on the card), then the bias: `conv(x, w) + b` as the
+    JAX package writes it, so a bf16 result is rounded where JAX rounds it
+    (after the convolution and again after the bias add)."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=1).permute(0, 2, 3, 1) + b
 
 
 def conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
@@ -123,7 +141,8 @@ class RRDB(nn.Module):
         self.RDB3 = ResidualDenseBlock5C(nf, gc)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.RDB3(self.RDB2(self.RDB1(x))) * 0.2 + x
+        out = self.RDB3(self.RDB2(self.RDB1(x)))
+        return out * scalar_like(out, 0.2) + x
 
 
 class RRDBTrunk(nn.Module):
@@ -185,8 +204,8 @@ class GeneratorRRDB_SR(_Generator):
         fea = self.trunk(x)
         for i in range(self.num_upsample):
             fea = conv_nhwc(getattr(self, f"upconv_{i}"), fea)
-            fea = pixel_shuffle(F.leaky_relu(fea, 0.01), 2)
-        fea = F.leaky_relu(conv_nhwc(self.HRconv, fea), 0.2)
+            fea = pixel_shuffle(lrelu(fea, 0.01), 2)
+        fea = lrelu(conv_nhwc(self.HRconv, fea), 0.2)
         out = conv_nhwc(self.conv_last, fea)
         return torch.clamp(out, 0.0, 1.0)
 

@@ -13,101 +13,37 @@ output `0.2 * x5 + x`.
   (`F.conv2d` + cat + LeakyReLU), used on the CPU and as the kernel's
   yardstick on the card.
 * `dense_block.launches` counts kernel launches (five per call on the card).
+* `launch_levels` is the five-launch loop over one concat buffer, shared
+  with K1 (`ops/dense_block_s2d.py`, whose f32 levels are this kernel's).
+* Drivers, the counterparts of `ops/pallas_rrdb.py:194-324`: `rrdb_fused`
+  (JAX `rrdb_pallas`), `rrdb_params_from_flax` and `make_fast_rrdb_forward`,
+  which runs the trunk on this kernel in the space-to-depth domain;
+  `rrdb_chain` is the RRDB loop they share with `ops/s2d_forward.py`.
 
 What bounds the block and what the kernel's design does about it are in the
 note at the top of `csrc/dense_block.cu`. The library is built at first use
-with `nvcc` for `sm_90a` into `build/torch_kernels/` under the checkout,
-keyed by a hash of the source and flags, and loaded with `ctypes`.
+(`ops/cuda_build.py`: `nvcc` for `sm_90a` into `build/torch_kernels/`) and
+loaded with `ctypes`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-from typing import Optional, Tuple
-
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-Tensor = torch.Tensor
+from . import cuda_build
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dense_block.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-BUILD_TIMEOUT_S = 300
+Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_CHANNELS_PER_BLOCK = 32  # CO in the kernel source (a multiple of its CK)
 _MAX_GRID_Z = 65535
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(nvcc).exists():
-        raise RuntimeError("nvcc not found: the dense-block kernel cannot be built")
-    return nvcc
-
-
-def build(build_dir: Path = BUILD_DIR) -> Tuple[Path, str, float]:
-    """Compile the kernel library (or find it already built).
-
-    Returns (library path, compiler output with the `-Xptxas -v` report,
-    seconds spent). The output file name carries a hash of the source and
-    flags; the library is written under a temporary name and renamed into
-    place, so an interrupted build leaves nothing that a later one trusts.
-    """
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    build_dir = Path(build_dir)
-    lib_path = build_dir / f"libdense_block_{key}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists():
-        return lib_path, log_path.read_text() if log_path.exists() else "", 0.0
-    build_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path, log, time.perf_counter() - t0
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dense_block_level.argtypes = [
-            i, i, p, i, i, i, i, i, p, p, i, p, i, i, p,
-        ]
-        lib.dense_block_level.restype = i
-        lib.dense_block_error_string.argtypes = [i]
-        lib.dense_block_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+_SIGNATURES = {
+    "dense_block_level": [cuda_build.I, cuda_build.I, cuda_build.P, *[cuda_build.I] * 5,
+                          cuda_build.P, cuda_build.P, cuda_build.I, cuda_build.P,
+                          cuda_build.I, cuda_build.I, cuda_build.P],
+}
 
 
 def _check_args(x: Tensor, weights) -> None:
@@ -181,27 +117,145 @@ def dense_block(
     if x.device.type != "cuda":
         raise ValueError(f"dense_block runs on cuda or cpu, got {x.device}")
     _check_args(x, weights)
-    lib = _library()
+    lib, level = level_kernel(x.dtype)
+    return launch_levels(x, weights[0::2], weights[1::2], lib, "dense_block", level, dense_block)
+
+
+def level_kernel(dtype: torch.dtype):
+    """(library, level launcher) of this kernel for `dtype`, built at first
+    use; the launcher takes `launch_levels`'s `level` arguments."""
+    lib = cuda_build.library("dense_block", _SIGNATURES)
+    code = _DTYPE_CODE[dtype]
+    return lib, lambda device, *args: lib.dense_block_level(device, code, *args)
+
+
+def launch_levels(x: Tensor, weights, biases, lib, lib_name: str, level, counter) -> Tensor:
+    """The five level launches of one block, shared by K2 and K1.
+
+    One NHWC concat buffer (B, H, W, 5C) holds x in channels [0, C); level
+    k < 5 writes channels [kC, (k+1)C), level 5 the output. `level(device,
+    buf, B, H, W, buf_stride, cin, w, bias, C, dst, dst_stride, residual,
+    stream)` launches one level of `lib` (named `lib_name`) and returns its
+    cudaError_t; `weights[k-1]` is in the layout that level reads.
+    `counter.launches` goes up by one per launch."""
     b, h, w, c = x.shape
     buf = torch.empty((b, h, w, 5 * c), dtype=x.dtype, device=x.device)
     buf[..., :c] = x
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _DTYPE_CODE[x.dtype]
-    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    stream = cuda_build.stream_of(x)
+    device = cuda_build.device_index(x)
     for k in range(1, 6):
         last = k == 5
         dst = out.data_ptr() if last else buf[..., k * c :].data_ptr()
-        err = lib.dense_block_level(
-            device, code, buf.data_ptr(), b, h, w, 5 * c, k * c,
-            weights[2 * (k - 1)].data_ptr(), weights[2 * (k - 1) + 1].data_ptr(),
-            c, dst, c if last else 5 * c, int(last), stream,
+        err = level(
+            device, buf.data_ptr(), b, h, w, 5 * c, k * c, weights[k - 1].data_ptr(),
+            biases[k - 1].data_ptr(), c, dst, c if last else 5 * c, int(last), stream,
         )
-        if err != 0:
-            msg = lib.dense_block_error_string(err).decode()
-            raise RuntimeError(f"dense_block level {k} launch failed: {msg} ({err})")
-        dense_block.launches += 1
+        cuda_build.check(lib, lib_name, err, f"{counter.__name__} level {k}")
+        counter.launches += 1
     return out
 
 
 dense_block.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Drivers: the RRDB on K2, and the fast forward with the trunk in the S2D
+# domain
+# --------------------------------------------------------------------------
+
+
+def rrdb_chain(x: Tensor, rrdbs, block) -> Tensor:
+    """RRDBs in sequence: each runs `block(t, params)` over the params of
+    its three dense blocks, then out * 0.2 + its input (the scalar in
+    `x.dtype`, as JAX rounds it)."""
+    from .precision import scalar_like
+
+    t = x
+    for rrdb in rrdbs:
+        block_in = t
+        for params in rrdb:
+            t = block(t, params)
+        t = t * scalar_like(t, 0.2) + block_in
+    return t
+
+
+def rrdb_fused(x: Tensor, block_params) -> Tensor:
+    """One RRDB through three `dense_block` calls: out * 0.2 + x.
+
+    block_params: three dense blocks, each five (w, b) pairs (HWIO)."""
+    return rrdb_chain(
+        x, [block_params],
+        lambda t, pairs: dense_block(t.contiguous(), *[a for pair in pairs for a in pair]),
+    )
+
+
+def rrdb_params_from_flax(params, n_blocks: int):
+    """[[(w, b) x 5] x 3] per RRDB, as f32 CPU tensors (HWIO), from the Flax
+    tree of a generator (any source `utils.weights.flax_tree` takes)."""
+    from ..utils.weights import flax_tree
+
+    trunk = flax_tree(params)["trunk"]
+    out = []
+    for i in range(n_blocks):
+        rrdb = trunk[f"rrdb_{i}"]
+        out.append([
+            [
+                (torch.from_numpy(rrdb[f"RDB{k}"][f"conv{j}"]["kernel"]),
+                 torch.from_numpy(rrdb[f"RDB{k}"][f"conv{j}"]["bias"]))
+                for j in range(1, 6)
+            ]
+            for k in (1, 2, 3)
+        ])
+    return out
+
+
+def make_fast_rrdb_forward(model, params, dtype=torch.bfloat16, device="cuda:0"):
+    """A forward for `GeneratorRRDB_SR`/`_DN` with the trunk's dense blocks
+    on K2 in the 2x2 space-to-depth domain (C = 4 * num_filters = 128 at
+    esr_gen width), equal to clip(model(x), 0, 1) up to dtype.
+
+    `params` is the Flax-layout tree (any source `utils.weights.flax_tree`
+    takes, a state_dict included); the S2D weights are transformed in f32
+    numpy and only then cast to `dtype` (`s2d_forward._transform_trunk`).
+    conv_first, trunk_conv and the head stay cuDNN convolutions at full
+    resolution. f32 runs with TF32 off. The JAX version's `tile` and
+    `interpret` arguments choose the TPU kernel's tiling and its interpreter
+    and have no counterpart here."""
+    from ..models.rrdb import GeneratorRRDB_SR, conv3x3_nhwc, pixel_shuffle
+    from ..utils.weights import flax_tree
+    from .precision import lrelu
+    from .s2d_forward import _maybe_true_f32, _transform_trunk
+    from .space_to_depth import d2s, s2d
+
+    p = flax_tree(params)
+    trunk = p["trunk"]
+    blocks = [
+        [[t for pair in rdb for t in pair] for rdb in rrdb]
+        for rrdb in _transform_trunk(trunk, model.trunk.num_res_blocks, dtype, device)["blocks"]
+    ]
+
+    def conv_w(node):  # HWIO -> OIHW, once
+        w = np.ascontiguousarray(node["kernel"].transpose(3, 2, 0, 1))
+        return torch.from_numpy(w).to(device, dtype), torch.from_numpy(node["bias"]).to(device, dtype)
+
+    first, tconv, last = conv_w(trunk["conv_first"]), conv_w(trunk["trunk_conv"]), conv_w(p["conv_last"])
+    is_sr = isinstance(model, GeneratorRRDB_SR)
+    if is_sr:
+        ups = [conv_w(p[f"upconv_{i}"]) for i in range(model.num_upsample)]
+        hr = conv_w(p["HRconv"])
+
+    def forward(x: Tensor) -> Tensor:
+        x = x.to(dtype)
+        fea = conv3x3_nhwc(x, *first)
+        t = rrdb_chain(s2d(fea).contiguous(), blocks, lambda t, flat: dense_block(t, *flat))
+        fea = fea + conv3x3_nhwc(d2s(t), *tconv)
+        if is_sr:
+            for up in ups:
+                fea = pixel_shuffle(lrelu(conv3x3_nhwc(fea, *up), 0.01), 2)
+            out = conv3x3_nhwc(lrelu(conv3x3_nhwc(fea, *hr), 0.2), *last)
+        else:
+            out = conv3x3_nhwc(fea, *last) + x
+        return torch.clamp(out, 0.0, 1.0)
+
+    return _maybe_true_f32(forward, dtype)

@@ -14,6 +14,11 @@ state_dict for `GeneratorRRDB_SR`/`GeneratorRRDB_DN`:
 It raises on a key it does not know (extra) and on an incomplete model
 (missing): every conv needs kernel and bias, the RRDBs must be numbered
 0..N-1 with all 15 dense-block convs, and HRconv comes with the upconvs.
+
+`flax_tree` goes the other way where the fast forwards need it: any of
+those sources, or a state_dict of the two generators, becomes the nested
+Flax tree of numpy arrays (HWIO kernels, no `params` root) that the JAX
+package's S2D and int8 builders read.
 """
 
 from __future__ import annotations
@@ -88,3 +93,32 @@ def params_from_flax(src: Union[str, Path, Mapping]) -> Dict[str, torch.Tensor]:
         raise KeyError(f"Flax params do not form an RRDB generator: missing "
                        f"{missing}, unexpected {extra}")
     return state
+
+
+_STATE = re.compile(r"^(.*)\.(weight|bias)$")
+
+
+def flax_tree(src) -> Dict:
+    """Flax params (any source `params_from_flax` takes) or a generator
+    state_dict -> nested dict of numpy f32 arrays, without the `params`
+    root, e.g. tree["trunk"]["rrdb_0"]["RDB1"]["conv1"]["kernel"] (HWIO)."""
+    if isinstance(src, Mapping) and src and all(
+        isinstance(v, torch.Tensor) for v in src.values()
+    ):
+        flat = {}
+        for key, t in src.items():
+            module, kind = _STATE.match(key).groups()
+            arr = t.detach().cpu().float().numpy()
+            if kind == "weight" and not _DENSE.match(module.replace(".", "/") + "/kernel"):
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            flat[module.replace(".", "/") + ("/kernel" if kind == "weight" else "/bias")] = arr
+    else:
+        flat = _flat_params(src)
+    tree: Dict = {}
+    for key, arr in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr, np.float32)  # a writable copy
+    return tree
