@@ -14,7 +14,9 @@ Phases, each printing its result and its seconds:
    version, a library call where one computes the same function, and its
    bound: K2 at (2, 416, 416, 32) and K1 at (2, 208, 208, 128) in f32 (TF32
    off) and bf16, with K2 also held on K1's inputs (C = 128, the fast
-   forward's shape); P at the probe's (2048, 128) x (128, 128), exact; K3 at
+   forward's shape; bf16 K2 runs K1's tensor-core level there); P at the
+   probe's (2048, 128) x (128, 128), exact, also timed on the device alone
+   (torch.profiler) beside torch._int_mm, with the host time per call; K3 at
    the trunk's level 5 (2, 208, 208, 640) -> 128 and conv_first
    (2, 208, 208, 4) -> 128, exact;
 4. serve: 4 synthetic Poisson detxy FITS (403x411, so padding is exercised)
@@ -31,8 +33,8 @@ Phases, each printing its result and its seconds:
    True)` in bf16 (int8 convolutions on K3, P's exactness check at build),
    held to the 40 dB int8 gate against the f32 plain forward;
 7. profile: one warm batch of each serving mode (model f32 and bf16, S2D
-   bf16, int8) traced with torch.profiler: device-busy time per image, idle
-   share, and busy time by kernel group.
+   bf16, fast bf16, int8) traced with torch.profiler: device-busy time per
+   image, idle share, and busy time by kernel group.
 
 The last two lines are a `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
@@ -171,6 +173,15 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _five_launch_bytes(shape, esize: int) -> int:
+    """Bytes the five level launches move through device memory: x copied
+    into the concat buffer (read and write), level k reading its k*C prefix
+    and writing C channels, level 5 also reading x for the residual."""
+    b, h, w, c = shape
+    per_pixel = 2 * c + sum(k * c + c for k in range(1, 6)) + c
+    return b * h * w * per_pixel * esize
+
+
 def _bound(flops: float, nbytes: float, dtype) -> tuple:
     """(bound ms, "operations" or "bytes") at the published peaks."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
@@ -181,22 +192,24 @@ def phase_kernel(dtype) -> dict:
     from xmm_superres_denoise_torch.ops.dense_block import (
         dense_block,
         dense_block_reference,
+        pack_weights,
     )
     from xmm_superres_denoise_torch.ops.precision import true_f32
 
     t0 = time.perf_counter()
     dev = torch.device("cuda:0")
     x, ws = _block_inputs(KERNEL_SHAPE, dtype, dev)
+    packed = pack_weights(ws[0::2], ws[1::2], dtype)  # as the model keeps it
     b, h, w, c = KERNEL_SHAPE
     with torch.inference_mode(), true_f32():
-        out = dense_block(x, *ws)
+        out = dense_block(x, packed)
         ref = dense_block_reference(x, *ws)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         tol = F32_ATOL if dtype == torch.float32 else BF16_ULPS * scale
         finite = bool(torch.isfinite(out).all())
-        ms = _time_ms(lambda: dense_block(x, *ws))
+        ms = _time_ms(lambda: dense_block(x, packed))
         plain_ms = _time_ms(lambda: dense_block_reference(x, *ws))
         x_nchw = x.permute(0, 3, 1, 2)
         oihw = [wk.permute(3, 2, 0, 1).contiguous() for wk in ws[0::2]]
@@ -212,10 +225,12 @@ def phase_kernel(dtype) -> dict:
         f"[kernel] dense_block {name} {KERNEL_SHAPE}: max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}, max|plain| {scale:.3f}), max|cudnn-plain| {lib_err:.3e}; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cudnn {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms "
+        f"kernel/cudnn {ms / library_ms:.2f}, bound {bound_ms:.4f} ms "
         f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
-        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved) "
-        f"({time.perf_counter() - t0:.2f} s)"
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; five-launch traffic "
+        f"{_five_launch_bytes(KERNEL_SHAPE, x.element_size()) / 1e9:.3f} GB, "
+        f"{_five_launch_bytes(KERNEL_SHAPE, x.element_size()) / PEAK_BYTES_PER_S * 1e3:.4f} ms "
+        f"at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s) ({time.perf_counter() - t0:.2f} s)"
     )
     if not finite or not err <= tol:
         raise AssertionError(f"dense_block {name} disagrees with its plain version: {err} > {tol}")
@@ -403,11 +418,11 @@ def phase_kernel_s2d(dtype) -> dict:
         tol = F32_ATOL * max(1.0, scale) if dtype == torch.float32 else BF16_ULPS * scale
         finite = bool(torch.isfinite(out).all())
         # K2 at C = 128, as make_fast_rrdb_forward runs it, on the same inputs
-        k2_out = dense_block(x, *flat)
+        k2_out = dense_block(x, packed)
         k2_err = (k2_out.float() - ref.float()).abs().max().item()
         k2_finite = bool(torch.isfinite(k2_out).all())
         ms = _time_ms(lambda: dense_block_s2d(x, packed), iters=10)
-        k2_ms = _time_ms(lambda: dense_block(x, *flat), iters=10)
+        k2_ms = _time_ms(lambda: dense_block(x, packed), iters=10)
         plain_ms = _time_ms(lambda: dense_block_s2d_reference(x, ws, bs), iters=5, warmup=1)
         x_nchw = x.permute(0, 3, 1, 2)
         oihw = [wk.permute(3, 2, 0, 1).contiguous() for wk in ws]
@@ -427,13 +442,27 @@ def phase_kernel_s2d(dtype) -> dict:
         f"nominal, {nbytes / 1e6:.1f} MB; achieved {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
         f"S2D, {nominal / (ms * 1e-3) / 1e12:.2f} TFLOP/s nominal); dense_block (K2, the fast "
         f"forward's block) on the same inputs: max|kernel-plain| {k2_err:.3e} (same tol), "
-        f"{k2_ms:.4f} ms ({time.perf_counter() - t0:.2f} s)"
+        f"K2 {k2_ms:.4f} ms beside K1 {ms:.4f} ms, K2/cudnn {k2_ms / library_ms:.2f} "
+        f"({time.perf_counter() - t0:.2f} s)"
     )
     if not finite or not err <= tol:
         raise AssertionError(f"dense_block_s2d {name} disagrees with its plain version: {err} > {tol}")
     if not k2_finite or not k2_err <= tol:
         raise AssertionError(f"dense_block {name} at C=128 disagrees with the plain version: "
                              f"{k2_err} > {tol}")
+    k2_entry = {
+        "name": f"dense_block[{name},C=128]",
+        "route": "cuda",
+        "source": "xmm_superres_denoise_torch/csrc/dense_block.cu",
+        "replaces": "xmm_superres_denoise_tpu/ops/pallas_rrdb.py:141",
+        "launches": None,  # filled from the fast forward's run
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": plain_ms,  # the same function's plain version, same inputs
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
     return {
         "name": f"dense_block_s2d[{name}]",
         "route": "cuda",
@@ -446,7 +475,38 @@ def phase_kernel_s2d(dtype) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }
+    }, k2_entry
+
+
+def _device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of the kernels one call launches: torch.profiler
+    over `iters` warm calls, the kernels' own durations summed (no launch
+    gaps, no host time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler saw no CUDA kernel")
+    return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+
+
+def _host_us(fn, iters: int = 200) -> float:
+    """Host time per call while enqueueing `iters` calls back to back."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def phase_kernel_p() -> dict:
@@ -475,14 +535,19 @@ def phase_kernel_p() -> dict:
         lib_mm = lambda: torch._int_mm(a, b_col)  # noqa: E731
     lib_exact = torch.equal(lib.cpu(), ref)
     library_ms = _time_ms(lib_mm, iters=50)
+    dev_ms, lib_dev_ms = _device_ms(lambda: int8_gemm(a, b)), _device_ms(lib_mm)
+    host_us, lib_host_us = _host_us(lambda: int8_gemm(a, b)), _host_us(lib_mm)
     flops = 2 * m * k * n
     nbytes = m * k + k * n + 4 * m * n
     bound_ms, bound_by = _bound(flops, nbytes, torch.int8)
     say(
         f"[kernel] int8_gemm {tuple(a.shape)} x {tuple(b.shape)}: exact {exact} (max|diff| "
-        f"{err:.0f}), torch._int_mm exact {lib_exact}; kernel {ms:.4f} ms, plain (f64 matmul on "
-        f"the card) {plain_ms:.4f} ms, torch._int_mm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G int8 ops) "
+        f"{err:.0f}), torch._int_mm exact {lib_exact}; CUDA events over 50 back-to-back calls: "
+        f"kernel {ms:.4f} ms, plain (f64 matmul on the card) {plain_ms:.4f} ms, torch._int_mm "
+        f"{library_ms:.4f} ms; device only (torch.profiler, 20 warm calls): kernel "
+        f"{dev_ms * 1e3:.2f} us, torch._int_mm {lib_dev_ms * 1e3:.2f} us; host per call while "
+        f"enqueueing: kernel {host_us:.2f} us, torch._int_mm {lib_host_us:.2f} us; bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G int8 ops) "
         f"({time.perf_counter() - t0:.2f} s)"
     )
     if not exact:
@@ -601,10 +666,9 @@ def phase_s2d(ctx) -> dict:
                     raise AssertionError(f"{label} {name}: {n} launches, expected {60 * n_batches}")
                 if not (np.isfinite(pred).all() and err <= tol * hr_max):
                     raise AssertionError(f"{label} {name} forward too far from the plain forward: {err}")
-                if label == "s2d":
-                    launches[name] = n
-                    if dtype == torch.bfloat16:
-                        ctx["profile"]["S2D bf16 (K1)"] = fwd
+                launches[f"{label} {name}"] = n
+                if dtype == torch.bfloat16:
+                    ctx["profile"][f"{label} bf16 ({'K1' if label == 's2d' else 'K2'})"] = fwd
 
         t0 = time.perf_counter()
         dn = GeneratorRRDB_DN()
@@ -672,17 +736,18 @@ def phase_serve_int8(ctx, tmp: Path) -> dict:
     return launches
 
 
-PROFILE_GROUPS = {
-    "dense_level_kernel": "K2/K1-f32 direct conv",
-    "conv3x3_kernel": "K1-bf16 / K3 implicit GEMM",
-    "int8_gemm_kernel": "P int8 GEMM",
-}
-
-
 def _profile_group(name: str) -> str:
-    for key, label in PROFILE_GROUPS.items():
-        if key in name:
-            return label
+    """The kernel group of a device kernel's name (demangled or not)."""
+    if "dense_level_kernel" in name:
+        return "K2/K1 f32 direct conv (CUDA cores)"
+    if "int8_gemm_kernel" in name:
+        return "P int8 GEMM"
+    if "conv3x3_kernel" in name:
+        if "S8" in name:
+            return "K3 s8 implicit GEMM"
+        if "Tile<16" in name or "TileILi16E" in name:
+            return "K2 bf16 tensor-core level, 16x16 px x 32 ch"
+        return "K1/K2 bf16 tensor-core level, 8x16 px x 128 ch"
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass", "sm90")):
         return "cuDNN/cuBLAS convolution or GEMM"
@@ -734,7 +799,8 @@ def main() -> int:
         device = phase_device()
         phase_build()
         kernels = [phase_kernel(torch.float32), phase_kernel(torch.bfloat16)]
-        s2d_kernels = [phase_kernel_s2d(torch.float32), phase_kernel_s2d(torch.bfloat16)]
+        (s2d_f32, _), (s2d_bf16, k2_c128) = (phase_kernel_s2d(torch.float32),
+                                             phase_kernel_s2d(torch.bfloat16))
         p_entry, k3_entry = phase_kernel_p(), phase_kernel_k3()
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
@@ -743,11 +809,12 @@ def main() -> int:
         phase_profile(ctx)
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
-        for entry, name in zip(s2d_kernels, ("f32", "bf16")):
-            entry["launches"] = s2d_launches[name]
+        s2d_f32["launches"] = s2d_launches["s2d f32"]
+        s2d_bf16["launches"] = s2d_launches["s2d bf16"]
+        k2_c128["launches"] = s2d_launches["fast bf16"]
         p_entry["launches"] = int8_launches["int8_gemm"]
         k3_entry["launches"] = int8_launches["conv_i8"]
-        kernels += [*s2d_kernels, p_entry, k3_entry]
+        kernels += [k2_c128, s2d_f32, s2d_bf16, p_entry, k3_entry]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

@@ -5,7 +5,8 @@ On the CPU `dense_block` runs its plain version; the CUDA kernel itself is
 held against that plain version on the card (tests/test_torch_gpu.py and
 chip_smoke.py). Tolerance rtol = atol = 2e-5, as tests/test_pallas_rrdb.py
 holds the Pallas kernel against Flax: f32 sums of up to 1440 products taken
-in another order.
+in another order. In bf16 both round each level's output once: 4 bf16 ulps
+x max|ref|.
 """
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from xmm_superres_denoise_torch.ops.dense_block import (
     _check_args,
     dense_block,
     dense_block_reference,
+    pack_weights,
 )
 from xmm_superres_denoise_tpu.models.rrdb import ResidualDenseBlock5C
 from xmm_superres_denoise_tpu.ops.pallas_rrdb import dense_block_pallas
@@ -50,6 +52,43 @@ def test_matches_pallas_kernel_interpret():
     out = _torch_block(x, ws).numpy()
     print(f"max|port - pallas interpret| {np.abs(out - np.asarray(ref)).max():.3e}")
     np.testing.assert_allclose(out, np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("c", [8, 32])
+def test_bf16_plain_version_within_ulps_of_pallas_kernel_interpret(c):
+    # both keep f32 inside a level and round each level's output to bf16
+    # once, summing in another order: a few bf16 ulps (2^-8 relative) apart
+    x = np.random.default_rng(8).normal(size=(1, 13, 21, c)).astype(np.float32)
+    ws = [w.astype(jnp.bfloat16) for w in _weights(c, seed=4)]
+    want = np.asarray(dense_block_pallas(
+        jnp.asarray(x, jnp.bfloat16), *[jnp.asarray(w) for w in ws], tile=(8, 8), interpret=True
+    ).astype(jnp.float32))
+    got = dense_block(torch.from_numpy(x).bfloat16(),
+                      *[torch.from_numpy(np.asarray(w, np.float32)).bfloat16() for w in ws])
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max()
+    tol = 4 * 2.0**-8 * np.abs(want).max()
+    print(f"C={c} bf16: max|port - pallas interpret| {err:.3e} (tol {tol:.3e})")
+    assert err <= tol
+
+
+def test_packed_block_gives_the_same_block_on_the_cpu():
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 8, 12, 32)).astype(np.float32))
+    ws = [torch.from_numpy(w) for w in _weights(32, seed=5)]
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = pack_weights(ws[0::2], ws[1::2], dtype)
+        if dtype == torch.bfloat16:  # (9, C, kC)[tap, o, i] == HWIO[tap // 3, tap % 3, i, o]
+            assert tuple(packed.kernel[1].shape) == (9, 32, 64)
+            assert torch.equal(packed.kernel[1][5], packed.hwio[1][1, 2].t())
+        else:
+            assert all(k is h for k, h in zip(packed.kernel, packed.hwio))
+        before = dense_block.launches
+        a = dense_block(x.to(dtype), packed)
+        b = dense_block(x.to(dtype), *[w.to(dtype) for w in ws])
+        assert dense_block.launches == before
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="ten weight tensors or one PackedBlock"):
+        dense_block(x, *ws[:4])
 
 
 def test_matches_flax_block_at_c32():

@@ -12,6 +12,10 @@ Tolerances: f32 with TF32 off differs from cuDNN only in summation order
 (atol 1e-4 on O(1) activations); bf16 stores each level in bf16 in both
 versions, so they may differ by a few bf16 ulps (2^-8 relative). The int8
 kernels are exact: their int32 sums must equal the plain versions'.
+
+K2's bf16 levels run on the tensor cores in two tile families: C % 128 == 0
+takes K1's level (8 x 16 pixels x 128 channels), any other C % 32 == 0 a
+16 x 16 x 32 tile; the shapes below run both, with ragged edges.
 """
 
 from pathlib import Path
@@ -22,12 +26,12 @@ import torch
 
 from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_SR
 from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8, conv_i8_reference
-from xmm_superres_denoise_torch.ops.dense_block import dense_block, dense_block_reference
-from xmm_superres_denoise_torch.ops.dense_block_s2d import (
-    dense_block_s2d,
-    dense_block_s2d_reference,
+from xmm_superres_denoise_torch.ops.dense_block import (
+    dense_block,
+    dense_block_reference,
     pack_weights,
 )
+from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d, dense_block_s2d_reference
 from xmm_superres_denoise_torch.ops.int8_gemm import PROBE_SHAPE, int8_gemm, int8_gemm_reference
 from xmm_superres_denoise_torch.ops.precision import true_f32
 from xmm_superres_denoise_torch.utils.weights import params_from_flax
@@ -55,7 +59,8 @@ def _block_inputs(shape, dtype, device, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 37, 45, 32), (1, 16, 16, 64), (3, 5, 70, 32)])
+@pytest.mark.parametrize("shape", [(2, 37, 45, 32), (1, 16, 16, 64), (3, 5, 70, 32),
+                                   (1, 19, 21, 96), (2, 24, 40, 128)])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     x, ws = _block_inputs(shape, dtype, cuda)
     before = dense_block.launches
@@ -80,6 +85,47 @@ def test_kernel_rejects_unsupported_input(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [32, 96, 128])
+def test_kernel_packed_block_equals_raw_weights(cuda, c, dtype):
+    x, ws = _block_inputs((2, 17, 33, c), dtype, cuda)
+    packed = pack_weights(ws[0::2], ws[1::2], dtype)
+    before = dense_block.launches
+    a = dense_block(x, packed)
+    b = dense_block(x, *ws)
+    torch.cuda.synchronize()
+    assert dense_block.launches == before + 10
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 24, 40, 128), (1, 13, 21, 256)])
+def test_k2_bf16_at_c_multiple_of_128_is_k1s_level(cuda, shape):
+    # the same tensor-core level kernel on the same inputs: equal bits
+    x, ws = _block_inputs(shape, torch.bfloat16, cuda)
+    packed = pack_weights(ws[0::2], ws[1::2], torch.bfloat16)
+    k2 = dense_block(x, packed)
+    k1 = dense_block_s2d(x, packed, h_strip=shape[1], w_tile=shape[2])
+    torch.cuda.synchronize()
+    assert torch.equal(k2, k1)
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_rejects_unsupported_input(cuda):
+    x, ws = _block_inputs((1, 8, 8, 64), torch.bfloat16, cuda)
+    packed = pack_weights(ws[0::2], ws[1::2], torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 32"):
+        dense_block(x[..., :16].contiguous(), *[w[..., :16] for w in ws])
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_block(torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16, device=cuda)[..., ::2], packed)
+    with pytest.raises(ValueError, match="packed w"):
+        dense_block(x, pack_weights(ws[0::2], ws[1::2], torch.float32)._replace(
+            biases=packed.biases))
+    with pytest.raises(ValueError, match="level 1"):
+        dense_block(x, *[w.float() if i == 0 else w for i, w in enumerate(ws)])
+
+
+@pytest.mark.gpu
 def test_trained_sr_model_on_kernel_matches_cpu(cuda):
     x = np.random.default_rng(1).uniform(0, 1, (2, 64, 64, 1)).astype(np.float32)
     model = GeneratorRRDB_SR()
@@ -92,6 +138,28 @@ def test_trained_sr_model_on_kernel_matches_cpu(cuda):
             out = model(torch.from_numpy(x).to(cuda)).cpu().numpy()
     assert dense_block.launches == before + 60
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_trained_sr_model_bf16_on_tensor_cores_tracks_cpu(cuda):
+    # bf16 on the card (tensor-core levels) against bf16 on the CPU (plain
+    # levels): the same one rounding per level, sums in another order, so
+    # within 4 bf16 ulps at the top of the [0, 1] output range
+    x = np.random.default_rng(1).uniform(0, 1, (2, 64, 64, 1)).astype(np.float32)
+    model = GeneratorRRDB_SR()
+    model.load_state_dict(params_from_flax(PARAMS))
+    model.to(torch.bfloat16)
+    with torch.inference_mode():
+        ref = model(torch.from_numpy(x).bfloat16()).float().numpy()
+        model.to(cuda)
+        before = dense_block.launches
+        out = model(torch.from_numpy(x).to(cuda, torch.bfloat16)).float().cpu().numpy()
+        again = model(torch.from_numpy(x).to(cuda, torch.bfloat16)).float().cpu().numpy()
+    assert dense_block.launches == before + 120
+    err = np.abs(out - ref).max()
+    print(f"model SR bf16: max|card - cpu| {err:.3e} (atol {4 * 2.0**-8:.3e})")
+    assert err <= 4 * 2.0**-8
+    np.testing.assert_array_equal(out, again)
 
 
 # --------------------------------------------------------------------------

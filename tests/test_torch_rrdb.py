@@ -17,11 +17,13 @@ import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
 
 from xmm_superres_denoise_torch.config.schema import ModelCfg
 from xmm_superres_denoise_torch.models.registry import build_model
+from xmm_superres_denoise_torch.models import rrdb as port_rrdb
 from xmm_superres_denoise_torch.models.rrdb import (
     GeneratorRRDB_DN,
     GeneratorRRDB_SR,
     pixel_shuffle,
 )
+from xmm_superres_denoise_torch.ops.dense_block import dense_block
 from xmm_superres_denoise_torch.utils.weights import params_from_flax
 from xmm_superres_denoise_tpu.models import rrdb as flax_rrdb
 
@@ -127,3 +129,90 @@ def test_registry_builds_dn_and_rejects_bad_scale():
 def test_unported_models_raise_not_implemented(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModelCfg(name=name, model={"base_model": "esr_gen"})
+
+
+# --------------------------------------------------------------------------
+# The dense block's pack of its weights for the kernel, kept between calls
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def pack_count(monkeypatch):
+    """Counts the model's calls of `pack_weights`."""
+    calls = []
+
+    def counting(*args, **kw):
+        calls.append(args)
+        return pack(*args, **kw)
+
+    pack = port_rrdb.pack_weights
+    monkeypatch.setattr(port_rrdb, "pack_weights", counting)
+    return calls
+
+
+def _small_model(seed=0):
+    model = GeneratorRRDB_SR(num_filters=8, num_res_blocks=2)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model
+
+
+def _blocks(model):
+    return [m for m in model.modules() if isinstance(m, port_rrdb.ResidualDenseBlock5C)]
+
+
+def test_forward_packs_each_dense_block_once(pack_count):
+    model = _small_model()
+    x = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (1, 12, 12, 1)).astype(np.float32))
+    with torch.inference_mode():
+        first = model(x)
+        packs = [b.packed() for b in _blocks(model)]
+        second = model(x)
+    assert len(pack_count) == 6  # 2 RRDB x 3 blocks, on the first forward only
+    assert all(b.packed() is p for b, p in zip(_blocks(model), packs))
+    assert torch.equal(first, second)
+
+
+def test_load_state_dict_and_in_place_changes_repack(pack_count):
+    model = _small_model()
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (1, 12, 12, 1)).astype(np.float32))
+    with torch.inference_mode():
+        model(x)
+    other = _small_model(seed=1)
+    model.load_state_dict(other.state_dict())
+    with torch.inference_mode():
+        assert torch.equal(model(x), other(x))
+    assert len(pack_count) == 6 + 6 + 6  # model, model again after loading, other
+    block = _blocks(model)[0]
+    with torch.no_grad():
+        block.conv3.weight.mul_(0.5)
+    t = torch.from_numpy(np.random.default_rng(4).normal(size=(1, 6, 7, 8)).astype(np.float32))
+    with torch.inference_mode():
+        got = block(t)
+    assert len(pack_count) == 19  # only the changed block
+    assert torch.equal(got, dense_block(t, *block.flat_params()))
+    model.to(torch.bfloat16)
+    with torch.inference_mode():
+        assert block(t.bfloat16()).dtype == torch.bfloat16
+    assert len(pack_count) == 20 and block.packed().kernel[0].dtype == torch.bfloat16
+
+
+def test_raw_weight_tuple_still_runs_the_block(pack_count):
+    block = _blocks(_small_model())[0]
+    t = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 5, 9, 8)).astype(np.float32))
+    with torch.inference_mode():
+        assert torch.equal(dense_block(t, *block.flat_params()), block(t))
+        assert torch.equal(dense_block(t, block.packed()), block(t))
+
+
+def test_parameters_made_in_inference_mode_are_packed_on_every_call(pack_count):
+    # such parameters keep no version counter, so the cache cannot see an
+    # in-place change; the block packs every time instead of going stale
+    t = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 6, 6, 8)).astype(np.float32))
+    with torch.inference_mode():
+        block = port_rrdb.ResidualDenseBlock5C(8, 8)
+        a = block(t)
+        block.conv1.weight.mul_(0.0)
+        b = block(t)
+        want = dense_block(t, *block.flat_params())
+    assert len(pack_count) == 2
+    assert torch.equal(b, want) and not torch.equal(a, b)

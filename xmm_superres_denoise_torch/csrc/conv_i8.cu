@@ -15,9 +15,10 @@
 // conv_first's 4 channels to 32 with zeros, which adds nothing), Cout a
 // multiple of 128. |sum| <= 9 * 640 * 127^2 ~ 9.3e7 fits int32.
 //
-// Design. The implicit GEMM of conv3x3_igemm.cuh on P's warp tile
-// (mma_tile.cuh, mma.sync m16n8k32 s8 -> s32), one k-step per staged chunk
-// of 32 input channels; 63,936 B of dynamic shared memory per block.
+// Design. The implicit GEMM of conv3x3_igemm.cuh on its Tile128 (8 x 16
+// pixels x 128 channels, 8 warps of the 32 x 64 mma_tile warp tile,
+// mma.sync m16n8k32 s8 -> s32), one k-step per staged chunk of 32 input
+// channels; 63,936 B of dynamic shared memory per block.
 // ptxas (nvcc 12.8, sm_90a): 126 registers, no spills.
 //
 // What bounds it on this card. At the trunk's level-5 shape, (2, 208, 208,
@@ -51,9 +52,9 @@ int conv_i8(int device, const void* x8, int B, int H, int W, int src_stride,
             int cin, const void* w, int cout, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return igemm::launch<mma_tile::S8, 32>(x8, B, H, W, src_stride, cin, w, cout,
-                                         StoreI32{static_cast<int*>(out), cout},
-                                         static_cast<cudaStream_t>(stream));
+  return igemm::launch<mma_tile::S8, 32, igemm::Tile128>(
+      x8, B, H, W, src_stride, cin, w, cout, StoreI32{static_cast<int*>(out), cout},
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* conv_i8_error_string(int err) {

@@ -1,5 +1,5 @@
 // One level of the RRDB residual dense block (ResidualDenseBlock5C) for
-// Hopper (sm_90a), with a plain C interface for ctypes.
+// Hopper (sm_90a), with a plain C interface for ctypes: K2.
 //
 // Replaces: ops/pallas_rrdb.py::dense_block_pallas of the JAX package
 // (kernel body _make_dense_block_kernel), the Pallas TPU kernel that fuses
@@ -8,41 +8,52 @@
 // What it computes. The wrapper (ops/dense_block.py) allocates one NHWC
 // concat buffer (B, H, W, 5C), copies x into channels [0, C) and launches
 // this kernel five times, once per level k = 1..5. Level k is a SAME 3x3
-// cross-correlation over the channel prefix [0, k*C) of the buffer with
-// HWIO weights (3, 3, k*C, C), plus bias, accumulated in f32:
+// cross-correlation over the channel prefix [0, k*C) of the buffer, plus
+// bias, accumulated in f32:
 //   k < 5 : LeakyReLU(0.2), written to buffer channels [k*C, (k+1)*C)
 //   k = 5 : 0.2 * conv + x, written to the output (B, H, W, C)
-// SAME zero padding comes from bounds checks while staging the input tile.
+// with one rounding to the storage type per level. SAME zero padding comes
+// from the zero fill of the staged input halo.
 //
 // What bounds it on this card. Per 416^2 image at C = 32 the block is
 // 9 * 32^2 * (1+2+3+4+5) * 2 = 276,480 FLOP per pixel, 47.8 GFLOP per
-// image, against about 22 MB read and 22 MB written in f32: about 2,000
-// FLOP per byte, far above the H100's ~20 (f32, CUDA cores) or ~295 (bf16,
-// tensor cores) FLOP-per-byte ridge. The block is compute-bound.
+// image. Its five launches move 23 * C values per pixel through device
+// memory (x copied in, level k reading its k*C prefix and writing C, level
+// 5 reading x again), 1,472 B in bf16 at C = 32, 0.51 GB at
+// (2, 416, 416, 32): about 190 FLOP per byte, under the bf16 tensor-core
+// ridge (~295) but far above the f32 CUDA-core ridge (~20). It is bound by
+// operations: 0.097 ms at 989 TFLOP/s in bf16 (the five-launch traffic
+// alone takes 0.152 ms at 3.35 TB/s), 1.43 ms at 67 TFLOP/s in f32.
 //
-// What this design does about it. It is the simple, right kernel: a
-// direct convolution on the CUDA cores in f32 (the parity class forbids
-// TF32; bf16 inputs are widened to f32 in shared memory), with every
-// multiply-add fed from shared memory. Each block computes a 16x16 pixel
-// tile for 32 output channels; each of its 128 threads holds 2 pixels x 32
-// channels of accumulators in registers, so one staged input value feeds
-// 32 FMAs and one broadcast weight row feeds 64. The input channels are
-// walked in chunks of 16 (one input halo tile and one weight slice per
-// chunk). Tensor cores (wgmma implicit GEMM) and a single-launch fused
-// block are later work: at C = 32 a 16x16 output tile with the 5-deep halo
-// of the fused form needs 26*26*160 f32 = 432 KB of concat, above the
-// 227 KB a block may use, so fusing needs bf16 storage or a smaller tile.
-//
-// Shared memory budget per block (static, under the 48 KB static limit):
-//   input tile  (16+2) * (16+2) pixels * (16+1) channels * 4 B = 22,032 B
-//                (+1 channel of padding keeps neighbouring pixels on
-//                 different banks)
-//   weights     9 taps * 16 in * 32 out * 4 B                   = 18,432 B
-//   total                                                        40,464 B
-// which lets five blocks share an SM's 228 KB.
+// What the design does about it. Two level kernels, chosen by dtype:
+// * bf16 runs on the tensor cores: the implicit GEMM of conv3x3_igemm.cuh
+//   (mma.sync m16n8k16 bf16 -> f32) through the level entry and epilogue of
+//   dense_level_bf16.cuh, which K1 shares. At C % 128 == 0 (the fast
+//   forward's C = 128) a block computes 8 x 16 pixels x 128 channels, K1's
+//   level; at any other C % 32 == 0 (the model's C = 32) 16 x 16 pixels x
+//   32 channels, 8 warps of 32 x 32, 48,960 B of shared memory (ptxas,
+//   nvcc 12.8: 122 registers, no spills). Weights come packed once as
+//   (9, C, k*C) bf16 (ops/dense_block.py: pack_weights).
+// * f32 stays on the CUDA cores (the parity class forbids TF32): a direct
+//   convolution with every multiply-add fed from shared memory. Each block
+//   computes a 16x16 pixel tile for 32 output channels; each of its 128
+//   threads holds 2 pixels x 32 channels of accumulators in registers, so
+//   one staged input value feeds 32 FMAs and one broadcast weight row feeds
+//   64. The input channels are walked in chunks of 16 (one input halo tile
+//   and one HWIO weight slice per chunk). Shared memory per block (static):
+//     input tile  (16+2) * (16+2) pixels * (16+1) channels * 4 B = 22,032 B
+//                  (+1 channel of padding keeps neighbouring pixels on
+//                   different banks)
+//     weights     9 taps * 16 in * 32 out * 4 B                   = 18,432 B
+//     total                                                        40,464 B
+//   which lets five blocks share an SM's 228 KB.
+// Neither form fuses the five levels into one launch: at C = 32 a 16x16
+// output tile with the 5-deep halo of the fused form needs 26*26*160 f32 =
+// 432 KB of concat, above the 227 KB a block may use.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dense_level_bf16.cuh"
 
 namespace {
 
@@ -56,13 +67,7 @@ constexpr int ROWS = TILE * TILE / THREADS;  // pixels per thread (2)
 constexpr int ROW_STEP = THREADS / TILE;     // row distance between them (8)
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // src: (B, H, W, src_stride) NHWC; reads channels [0, cin).
 // w: (3, 3, cin, C) HWIO; bias: (C,).
@@ -180,8 +185,9 @@ int launch(const void* src, int B, int H, int W, int src_stride, int cin,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Shapes are checked by the Python
-// wrapper: C % 32 == 0, cin % 16 == 0, B * C / 32 < 65536.
+// dtype: 0 = float32 on the CUDA cores, w HWIO (3, 3, cin, C);
+// 1 = bfloat16 on the tensor cores, w packed (9, C, cin). Shapes are checked
+// by the Python wrapper: C % 32 == 0, cin % 32 == 0, B * C / 32 < 65536.
 // Returns the cudaError_t of the launch (0 = cudaSuccess).
 int dense_block_level(int device, int dtype, const void* src, int B, int H,
                       int W, int src_stride, int cin, const void* w,
@@ -194,8 +200,8 @@ int dense_block_level(int device, int dtype, const void* src, int B, int H,
     return launch<float>(src, B, H, W, src_stride, cin, w, bias, C, dst,
                          dst_stride, residual, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(src, B, H, W, src_stride, cin, w, bias, C,
-                                 dst, dst_stride, residual, s);
+    return dense_level_bf16::launch(src, B, H, W, src_stride, cin, w, bias, C, dst,
+                                    dst_stride, residual, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -20,12 +20,13 @@
 // SAME zero padding is the zero fill of the staged halo, which is what the
 // TPU kernel's per-level mask to the image box computes.
 //
-// bf16: the implicit GEMM of conv3x3_igemm.cuh on the tensor cores,
-// mma.sync m16n8k16 bf16 -> f32; per level M = output pixels, N = 128,
-// K = 9 * k * 128, the (M, k*128) x (k*128, 128) products that the TPU body
-// issues per tap. Chunks of 32 channels (64 bytes); 106,560 B of dynamic
-// shared memory per block. Weights come packed once per forward as
-// (9, C, k*C) bf16 (ops/dense_block_s2d.py: pack_weights).
+// bf16: the tensor-core level of dense_level_bf16.cuh, which K2's bf16
+// levels share: the implicit GEMM of conv3x3_igemm.cuh, mma.sync m16n8k16
+// bf16 -> f32; per level M = output pixels, N = 128, K = 9 * k * 128, the
+// (M, k*128) x (k*128, 128) products that the TPU body issues per tap, on
+// its Tile128 (8 x 16 pixels x 128 channels, chunks of 32 channels = 64
+// bytes, 106,560 B of dynamic shared memory per block). Weights come packed
+// once per forward as (9, C, k*C) bf16 (ops/dense_block.py: pack_weights).
 // f32 has no entry here: the wrapper launches K2's direct convolution on
 // the CUDA cores (dense_block.cu, HWIO weights), because TF32 would leave
 // the f32 parity class.
@@ -37,39 +38,7 @@
 // of bytes: bound by operations, 0.387 ms in bf16 at 989 TFLOP/s and
 // 5.7 ms in f32 at 67 TFLOP/s.
 
-#include <cuda_bf16.h>
-
-#include "conv3x3_igemm.cuh"
-
-namespace {
-
-// bias, then LeakyReLU(0.2) into the concat buffer, or 0.2 * v + x into
-// the output; f32 arithmetic, one rounding to bf16 at the store.
-struct DenseLevelBf16 {
-  const __nv_bfloat16* bias;
-  const __nv_bfloat16* res;  // the block input x: buffer channels [0, C)
-  int res_stride;
-  __nv_bfloat16* dst;
-  int dst_stride;
-  int residual;
-  __device__ __forceinline__ void operator()(size_t pix, int n, float v0, float v1) const {
-    v0 += __bfloat162float(bias[n]);
-    v1 += __bfloat162float(bias[n + 1]);
-    if (residual) {
-      const __nv_bfloat162 r =
-          *reinterpret_cast<const __nv_bfloat162*>(res + pix * res_stride + n);
-      v0 = v0 * 0.2f + __low2float(r);
-      v1 = v1 * 0.2f + __high2float(r);
-    } else {
-      v0 = v0 >= 0.f ? v0 : 0.2f * v0;
-      v1 = v1 >= 0.f ? v1 : 0.2f * v1;
-    }
-    *reinterpret_cast<__nv_bfloat162*>(dst + pix * dst_stride + n) =
-        __floats2bfloat162_rn(v0, v1);
-  }
-};
-
-}  // namespace
+#include "dense_level_bf16.cuh"
 
 extern "C" {
 
@@ -85,11 +54,8 @@ int dense_block_s2d_level(int device, const void* buf, int B, int H, int W,
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const DenseLevelBf16 epi{static_cast<const __nv_bfloat16*>(bias),
-                           static_cast<const __nv_bfloat16*>(buf), buf_stride,
-                           static_cast<__nv_bfloat16*>(dst), dst_stride, residual};
-  return igemm::launch<mma_tile::Bf16, 64>(buf, B, H, W, buf_stride * 2, cin * 2, w, C,
-                                           epi, static_cast<cudaStream_t>(stream));
+  return dense_level_bf16::launch(buf, B, H, W, buf_stride, cin, w, bias, C, dst, dst_stride,
+                                  residual, static_cast<cudaStream_t>(stream));
 }
 
 const char* dense_block_s2d_error_string(int err) {

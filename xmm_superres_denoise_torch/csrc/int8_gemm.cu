@@ -5,24 +5,29 @@
 // the JAX repository, a Pallas TPU kernel that multiplies (2048, 128) by
 // (128, 128) int8 with int32 accumulation and is checked for exact
 // equality. Here it is the smallest check that the card's int8 tensor-core
-// sums are exact, and the warp tile (mma_tile.cuh) that the s8 convolution
+// sums are exact, on the warp tile (mma_tile.cuh) that the s8 convolution
 // K3 (conv_i8.cu) is built on.
 //
 // What it computes. a (M, K) int8 row-major, b (K, N) int8 row-major,
 // out (M, N) int32 = a @ b, exact. K % 32 == 0 and N % 8 == 0.
 //
-// Design. A block computes a 128 x 128 tile of the output with 8 warps,
-// 4 along M by 2 along N, each a 32 x 64 mma_tile warp tile
-// (mma.sync m16n8k32 s8 -> s32). K is walked in chunks of 128 bytes: the
-// block stages its 128 rows of a with cp.async and transposes its 128
-// columns of b into K-contiguous rows while staging (the B fragment wants
-// K-major columns), both into rows of 144 bytes; 36,864 B of static
-// shared memory. ptxas (nvcc 12.8, sm_90a): 126 registers, no spills.
-//
 // What bounds it on this card. At the probe's shape it moves 0.28 MB in and
 // 1.05 MB out for 67 M int8 ops, ~50 ops per byte, far under the ~590 ridge
 // of an H100 SXM: bound by bytes, 0.4 us at 3.35 TB/s. At that size one
-// launch is ~16 blocks and its time is launch latency.
+// launch is launch latency: the time from the launch to the last block's
+// stores, set by how many blocks run side by side and how long each one's
+// serial chain of loads, k-steps and stores is.
+//
+// Design, shaped for that latency. A block computes a 64 x 64 tile of the
+// output with 4 warps, 2 along M by 2 along N, each a 32 x 32 mma_tile warp
+// tile (mma.sync m16n8k32 s8 -> s32, N_TILES = 4), so the probe's shape is
+// 32 x 2 = 64 blocks on 64 of the card's 132 SMs (a 128 x 128 tile gave 16).
+// K is walked in chunks of 128 bytes, the probe's whole K in one: the block
+// stages its 64 rows of a with cp.async and its 64 columns of b
+// K-contiguous, each thread reading four rows of b as 32-bit words and
+// transposing the 4 x 4 bytes in registers (__byte_perm) into four 32-bit
+// stores; both into rows of 144 bytes, 18,432 B of static shared memory.
+// ptxas (nvcc 12.8, sm_90a): 70 registers, no spills.
 
 #include "mma_tile.cuh"
 
@@ -30,9 +35,12 @@ namespace {
 
 using namespace mma_tile;
 
-constexpr int BM = 128, BN = 128, KC = 128;
+constexpr int BM = 64, BN = 64, KC = 128;
+constexpr int N_TILES = 4;  // 32 x 32 warp tile
+constexpr int WARP_N = 8 * N_TILES;
+constexpr int WARPS_M = BM / WARP_M;
 constexpr int ROW = KC + 16;
-constexpr int THREADS = 256;
+constexpr int THREADS = 32 * WARPS_M * (BN / WARP_N);
 
 __global__ void __launch_bounds__(THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
@@ -43,10 +51,10 @@ int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % 4, wn = warp / 4;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
 
   S8::Acc acc[M_TILES][N_TILES][4];
-  zero<S8>(acc);
+  zero<S8, N_TILES>(acc);
 
   for (int k0 = 0; k0 < K; k0 += KC) {
     for (int i = tid; i < BM * (KC / 16); i += THREADS) {
@@ -55,23 +63,34 @@ int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       const bool in = row < M && k < K;
       cp_async16(s_a + r * ROW + 16 * v, in ? a + (size_t)row * K + k : a, in ? 16 : 0);
     }
-    for (int i = tid; i < KC * (BN / 4); i += THREADS) {
-      const int kk = i / (BN / 4), n = 4 * (i % (BN / 4));
+    // b: four rows k..k+3 of four columns n..n+3 per item, transposed in
+    // registers to four K-contiguous words (K % 32 and N % 8 keep a quad
+    // all inside or all outside)
+    for (int i = tid; i < (KC / 4) * (BN / 4); i += THREADS) {
+      const int kk = 4 * (i / (BN / 4)), n = 4 * (i % (BN / 4));
       const int k = k0 + kk;
-      char4 v = make_char4(0, 0, 0, 0);
-      if (k < K && n0 + n < N)
-        v = *reinterpret_cast<const char4*>(b + (size_t)k * N + n0 + n);
-      s_b[(n + 0) * ROW + kk] = static_cast<uint8_t>(v.x);
-      s_b[(n + 1) * ROW + kk] = static_cast<uint8_t>(v.y);
-      s_b[(n + 2) * ROW + kk] = static_cast<uint8_t>(v.z);
-      s_b[(n + 3) * ROW + kk] = static_cast<uint8_t>(v.w);
+      uint32_t r[4] = {0, 0, 0, 0};
+      if (k < K && n0 + n < N) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          r[j] = *reinterpret_cast<const uint32_t*>(b + (size_t)(k + j) * N + n0 + n);
+      }
+      const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+      const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+      const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+      const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
+      uint8_t* col = s_b + n * ROW + kk;
+      *reinterpret_cast<uint32_t*>(col) = __byte_perm(lo01, lo23, 0x5410);
+      *reinterpret_cast<uint32_t*>(col + ROW) = __byte_perm(lo01, lo23, 0x7632);
+      *reinterpret_cast<uint32_t*>(col + 2 * ROW) = __byte_perm(hi01, hi23, 0x5410);
+      *reinterpret_cast<uint32_t*>(col + 3 * ROW) = __byte_perm(hi01, hi23, 0x7632);
     }
     cp_async_wait_all();
     __syncthreads();
 #pragma unroll
     for (int ks = 0; ks < KC; ks += K_BYTES)
-      kstep<S8>(acc, s_a + (wm * WARP_M + g) * ROW + ks + 4 * t, 8 * ROW, 16 * ROW,
-                s_b + (wn * WARP_N + g) * ROW + ks + 4 * t, 8 * ROW);
+      kstep<S8, N_TILES>(acc, s_a + (wm * WARP_M + g) * ROW + ks + 4 * t, 8 * ROW, 16 * ROW,
+                         s_b + (wn * WARP_N + g) * ROW + ks + 4 * t, 8 * ROW);
     __syncthreads();
   }
 

@@ -1,9 +1,11 @@
 // The tensor-core warp tile shared by the int8 GEMM probe (int8_gemm.cu),
 // the s8 implicit-GEMM convolution (conv_i8.cu) and the bf16 dense-block
-// level of the space-to-depth block (dense_block_s2d.cu).
+// level (dense_level_bf16.cuh, behind dense_block.cu and
+// dense_block_s2d.cu).
 //
-// One warp owns a 32 x 64 tile of the output (two m16 tiles by eight n8
-// tiles) and advances it by one k-step of 32 bytes of K:
+// One warp owns a 32 x (8 * N_TILES) tile of the output (two m16 tiles by
+// N_TILES n8 tiles; N_TILES is a template parameter: 8 for a 32 x 64 tile,
+// 4 for 32 x 32) and advances it by one k-step of 32 bytes of K:
 //   bf16: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (16 values)
 //   s8:   mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32     (32 values)
 // In bytes the two instructions take their fragments from the same places,
@@ -17,8 +19,8 @@
 //   D (16 x 8): d0, d1 = row g, columns 2t, 2t+1; d2, d3 = row g+8, same
 //     columns.
 // Rows of A and columns of B live in shared memory at any byte stride that
-// is a multiple of 4; a stride of 16 bytes more than the K chunk (48 or 80
-// bytes) puts the eight rows that one load touches on distinct banks.
+// is a multiple of 4; a stride of 16 bytes more than the K chunk (48, 80 or
+// 144 bytes) puts the eight rows that one load touches on distinct banks.
 #pragma once
 
 #include <cstdint>
@@ -27,9 +29,7 @@
 namespace mma_tile {
 
 constexpr int WARP_M = 32;   // output rows of a warp (two m16 tiles)
-constexpr int WARP_N = 64;   // output columns of a warp (eight n8 tiles)
 constexpr int M_TILES = 2;
-constexpr int N_TILES = 8;
 constexpr int K_BYTES = 32;  // bytes of K per k-step
 
 struct Bf16 {
@@ -60,7 +60,7 @@ __device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <class Op>
+template <class Op, int N_TILES>
 __device__ __forceinline__ void zero(typename Op::Acc (&acc)[M_TILES][N_TILES][4]) {
 #pragma unroll
   for (int mi = 0; mi < M_TILES; ++mi)
@@ -75,7 +75,7 @@ __device__ __forceinline__ void zero(typename Op::Acc (&acc)[M_TILES][N_TILES][4
 // 4t. Row g+8 of an m-tile is `a_row8` bytes after row g, m-tile 1 is
 // `a_mtile` bytes after m-tile 0, and n-tile j is j * `b_ntile` bytes after
 // n-tile 0.
-template <class Op>
+template <class Op, int N_TILES>
 __device__ __forceinline__ void kstep(typename Op::Acc (&acc)[M_TILES][N_TILES][4],
                                       const uint8_t* a, int a_row8, int a_mtile,
                                       const uint8_t* b, int b_ntile) {

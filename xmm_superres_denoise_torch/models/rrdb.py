@@ -6,10 +6,13 @@ the JAX layouts: activations are NHWC and the dense-block weights HWIO.
 * `ResidualDenseBlock5C` calls `ops.dense_block.dense_block`, so a model on
   the card runs its 12 dense blocks (4 RRDB x 3) on the hand-written kernel
   and a model on the CPU runs the plain version. Its five convs hold HWIO
-  weights, the kernel's layout, converted once at load.
+  weights, converted once at load; the block keeps them packed for the
+  kernel (`packed`) and packs again only when a parameter changed.
 * The five convs outside the trunk (conv_first, trunk_conv, upconv, HRconv,
-  conv_last) are `nn.Conv2d` (OIHW) applied to the NCHW view of the NHWC
-  activations (channels_last memory), so no layout copy is made.
+  conv_last) hold `nn.Conv2d` (OIHW) weights, applied to the NCHW view of
+  the NHWC activations (channels_last memory), so no layout copy is made;
+  the bias is added after the convolution, as Flax's `nn.Conv` does, so a
+  bf16 result is rounded where JAX rounds it.
 * Initializers follow torch Conv2d defaults (U(+-1/sqrt(fan_in)), fan_in =
   in_ch*9) and the positive-bias init of `conv_last`, whose bound uses
   in_channels only.
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dense_block import dense_block
+from ..ops.dense_block import PackedBlock, dense_block, pack_weights
 from ..ops.precision import lrelu, scalar_like
 
 Tensor = torch.Tensor
@@ -59,17 +62,18 @@ def pixel_unshuffle(x: Tensor, r: int = 2) -> Tensor:
     return x.reshape(n, h, w, c * r * r)
 
 
-def conv_nhwc(conv: nn.Conv2d, x: Tensor) -> Tensor:
-    """Apply an OIHW `nn.Conv2d` to an NHWC tensor through its NCHW view."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-
-
 def conv3x3_nhwc(x: Tensor, w_oihw: Tensor, b: Tensor) -> Tensor:
     """SAME 3x3 convolution of an NHWC tensor with OIHW weights, through the
     NCHW view (cuDNN on the card), then the bias: `conv(x, w) + b` as the
     JAX package writes it, so a bf16 result is rounded where JAX rounds it
     (after the convolution and again after the bias add)."""
     return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=1).permute(0, 2, 3, 1) + b
+
+
+def conv_nhwc(conv: nn.Conv2d, x: Tensor) -> Tensor:
+    """Apply a 3x3 SAME `nn.Conv2d` to an NHWC tensor, bias after the
+    convolution (`conv3x3_nhwc`)."""
+    return conv3x3_nhwc(x, conv.weight, conv.bias)
 
 
 def conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
@@ -109,6 +113,16 @@ class DenseConv(nn.Module):
         torch_conv_init_(self.weight, self.bias, in_channels)
 
 
+def _pack_key(p: Tensor):
+    """What identifies a parameter's values for `ResidualDenseBlock5C.packed`,
+    or None for an inference tensor, which has no version counter."""
+    try:
+        version = p._version
+    except RuntimeError:
+        return None
+    return version, p.data_ptr(), p.dtype, p.device
+
+
 class ResidualDenseBlock5C(nn.Module):
     """5-conv dense block with 0.2-scaled residual, on `dense_block`."""
 
@@ -118,6 +132,8 @@ class ResidualDenseBlock5C(nn.Module):
             raise ValueError(f"the dense-block kernel needs nf == gc, got {nf}, {gc}")
         for j in range(1, 6):
             setattr(self, f"conv{j}", DenseConv(nf + (j - 1) * gc, nf if j == 5 else gc))
+        self._pack: Optional[PackedBlock] = None
+        self._pack_key = None
 
     def flat_params(self):
         """(w1, b1, ..., w5, b5) in `dense_block`'s argument order."""
@@ -127,8 +143,23 @@ class ResidualDenseBlock5C(nn.Module):
             out += [conv.weight, conv.bias]
         return out
 
+    def packed(self) -> PackedBlock:
+        """The parameters packed for the kernel in their own dtype, made at
+        the first call and again only after a parameter's version (an
+        in-place change such as `load_state_dict`), storage, dtype or device
+        changed. Parameters made inside `torch.inference_mode` keep no
+        version counter, so an in-place change cannot be seen: they are
+        packed on every call."""
+        params = self.flat_params()
+        key = tuple(_pack_key(p) for p in params)
+        if None in key or key != self._pack_key:
+            with torch.no_grad():
+                self._pack = pack_weights(params[0::2], params[1::2], params[0].dtype)
+            self._pack_key = key
+        return self._pack
+
     def forward(self, x: Tensor) -> Tensor:
-        return dense_block(x.contiguous(), *self.flat_params())
+        return dense_block(x.contiguous(), self.packed())
 
 
 class RRDB(nn.Module):

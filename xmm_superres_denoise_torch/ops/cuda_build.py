@@ -112,7 +112,9 @@ def device_index(t) -> int:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of `t`'s device, as an int for ctypes."""
+    """The current CUDA stream of `t`'s device, as an int for ctypes: the
+    raw handle, read without making a `torch.cuda.Stream` object (a host
+    cost that a launch of a few microseconds notices)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device_index(t))

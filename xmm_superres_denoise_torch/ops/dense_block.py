@@ -5,16 +5,26 @@ Replaces the Pallas TPU kernel
 `ResidualDenseBlock5C` forward, NHWC input, HWIO weights, f32 accumulation,
 output `0.2 * x5 + x`.
 
-* `dense_block(x, w1, b1, ..., w5, b5)` is the entry point. For a CUDA
-  tensor it launches the kernel of `csrc/dense_block.cu` (five launches,
-  one per level, over one NHWC concat buffer) or raises; there is no
-  fallback. For a CPU tensor it runs the plain version.
+* `dense_block(x, w1, b1, ..., w5, b5)` or `dense_block(x, packed)` is the
+  entry point. For a CUDA tensor it launches the kernel of
+  `csrc/dense_block.cu` (five launches, one per level, over one NHWC concat
+  buffer) or raises; there is no fallback. bf16 levels run on the tensor
+  cores and read the weights packed as (9, C, k*C); f32 levels run on the
+  CUDA cores (TF32 would leave the f32 parity class) and read HWIO. For a
+  CPU tensor it runs the plain version.
+* `pack_weights` casts and lays a block's weights out once (`PackedBlock`),
+  for a caller that runs the block many times: the model's
+  `ResidualDenseBlock5C` keeps its pack, `make_fast_rrdb_forward` and the
+  S2D forwards pack when they are built. Ten raw tensors are packed on
+  every call.
 * `dense_block_reference` is the plain version of the same function
   (`F.conv2d` + cat + LeakyReLU), used on the CPU and as the kernel's
   yardstick on the card.
 * `dense_block.launches` counts kernel launches (five per call on the card).
-* `launch_levels` is the five-launch loop over one concat buffer, shared
-  with K1 (`ops/dense_block_s2d.py`, whose f32 levels are this kernel's).
+* `launch_levels` is the five-launch loop over one concat buffer, and
+  `check_packed` the check of a packed block, both shared with K1
+  (`ops/dense_block_s2d.py`, whose f32 levels are this kernel's and whose
+  bf16 levels are the same tensor-core level).
 * Drivers, the counterparts of `ops/pallas_rrdb.py:194-324`: `rrdb_fused`
   (JAX `rrdb_pallas`), `rrdb_params_from_flax` and `make_fast_rrdb_forward`,
   which runs the trunk on this kernel in the space-to-depth domain;
@@ -27,6 +37,8 @@ loaded with `ctypes`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,19 +58,78 @@ _SIGNATURES = {
 }
 
 
-def _check_args(x: Tensor, weights) -> None:
-    """Raise on anything the kernel does not take."""
+class PackedBlock(NamedTuple):
+    """The weights of one block, cast and laid out once."""
+
+    hwio: Tuple[Tensor, ...]  # w_k (3, 3, k*C, C), for the plain version
+    biases: Tuple[Tensor, ...]  # b_k (C,)
+    kernel: Tuple[Tensor, ...]  # what the kernel reads: bf16 (9, C, k*C), f32 HWIO
+
+
+def pack_weights(
+    weights: Sequence[Tensor], biases: Sequence[Tensor], dtype: torch.dtype
+) -> PackedBlock:
+    """Cast the block's weights and biases to `dtype` and lay them out for
+    the kernel, on the weights' device: bf16 as (9, C, k*C), the K-major
+    order of the tensor cores' B operand; any other dtype as HWIO."""
+    hwio = tuple(w.to(dtype).contiguous() for w in weights)
+    bs = tuple(b.to(dtype).contiguous() for b in biases)
+    if dtype == torch.bfloat16:
+        kernel = tuple(
+            w.reshape(9, w.shape[2], w.shape[3]).transpose(1, 2).contiguous() for w in hwio
+        )
+    else:
+        kernel = hwio
+    return PackedBlock(hwio, bs, kernel)
+
+
+def _check_input(x: Tensor, name: str, multiple: int) -> None:
+    """Raise on an input the level kernels do not take: not NHWC, not f32
+    or bf16, C not a multiple of `multiple`, a grid too large, or not
+    contiguous."""
     if x.dim() != 4:
-        raise ValueError(f"dense_block expects NHWC (B, H, W, C), got {tuple(x.shape)}")
+        raise ValueError(f"{name} expects NHWC (B, H, W, C), got {tuple(x.shape)}")
     b, h, w, c = x.shape
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"dense_block kernel takes float32 or bfloat16, got {x.dtype}")
-    if c % _OUT_CHANNELS_PER_BLOCK:
-        raise ValueError(f"dense_block kernel needs C % 32 == 0, got C={c}")
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {x.dtype}")
+    if c % multiple:
+        raise ValueError(f"{name} kernel needs C % {multiple} == 0, got C={c}")
     if b * (c // _OUT_CHANNELS_PER_BLOCK) > _MAX_GRID_Z or b * h * w == 0:
-        raise ValueError(f"dense_block kernel cannot take shape {tuple(x.shape)}")
+        raise ValueError(f"{name} kernel cannot take shape {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError("dense_block kernel needs a contiguous NHWC input")
+        raise ValueError(f"{name} kernel needs a contiguous NHWC input")
+
+
+def _check_tensors(x: Tensor, level: int, tensors) -> None:
+    for t in tensors:
+        if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError(f"level {level}: weights must be contiguous {x.dtype} on {x.device}")
+
+
+def check_packed(x: Tensor, packed: PackedBlock, name: str = "dense_block",
+                 multiple: int = _OUT_CHANNELS_PER_BLOCK) -> None:
+    """Raise on anything the level kernels do not take from `x` and a
+    `PackedBlock` (K2: C % 32 == 0; K1 passes its C % 128)."""
+    _check_input(x, name, multiple)
+    c = x.shape[-1]
+    if len(packed.kernel) != 5 or len(packed.biases) != 5:
+        raise ValueError(f"{name} takes five weights and five biases")
+    for k in range(1, 6):
+        wk, bk = packed.kernel[k - 1], packed.biases[k - 1]
+        want = (9, c, k * c) if x.dtype == torch.bfloat16 else (3, 3, k * c, c)
+        if tuple(wk.shape) != want or tuple(bk.shape) != (c,):
+            raise ValueError(
+                f"level {k}: expected packed w {want} and b ({c},), got "
+                f"{tuple(wk.shape)} and {tuple(bk.shape)}"
+            )
+        _check_tensors(x, k, (wk, bk))
+
+
+def _check_args(x: Tensor, weights) -> None:
+    """Raise on anything the kernel does not take from `x` and ten raw
+    tensors (w1, b1, ..., w5, b5), HWIO, of `x`'s dtype."""
+    _check_input(x, "dense_block", _OUT_CHANNELS_PER_BLOCK)
+    c = x.shape[-1]
     for k in range(1, 6):
         wk, bk = weights[2 * (k - 1)], weights[2 * (k - 1) + 1]
         if tuple(wk.shape) != (3, 3, k * c, c) or tuple(bk.shape) != (c,):
@@ -66,11 +137,7 @@ def _check_args(x: Tensor, weights) -> None:
                 f"level {k}: expected w (3, 3, {k * c}, {c}) and b ({c},), got "
                 f"{tuple(wk.shape)} and {tuple(bk.shape)}"
             )
-        for t in (wk, bk):
-            if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
-                raise ValueError(
-                    f"level {k}: weights must be contiguous {x.dtype} on {x.device}"
-                )
+        _check_tensors(x, k, (wk, bk))
 
 
 def dense_block_reference(
@@ -99,31 +166,34 @@ def dense_block_reference(
     return out.to(dtype).permute(0, 2, 3, 1)
 
 
-def dense_block(
-    x: Tensor,
-    w1: Tensor, b1: Tensor,
-    w2: Tensor, b2: Tensor,
-    w3: Tensor, b3: Tensor,
-    w4: Tensor, b4: Tensor,
-    w5: Tensor, b5: Tensor,
-) -> Tensor:
-    """One ResidualDenseBlock5C forward (SAME padding), NHWC, HWIO weights.
+def dense_block(x: Tensor, *weights) -> Tensor:
+    """One ResidualDenseBlock5C forward (SAME padding), NHWC.
 
-    A CUDA input runs the hand-written kernel (or raises); a CPU input runs
-    `dense_block_reference`."""
-    weights = (w1, b1, w2, b2, w3, b3, w4, b4, w5, b5)
+    `weights` is ten tensors (w1, b1, ..., w5, b5), HWIO, or one
+    `PackedBlock` of `x`'s dtype. A CUDA input runs the hand-written kernel
+    (or raises); a CPU input runs `dense_block_reference`."""
+    packed = weights[0] if len(weights) == 1 and isinstance(weights[0], PackedBlock) else None
+    if packed is None and len(weights) != 10:
+        raise TypeError("dense_block takes ten weight tensors or one PackedBlock")
     if x.device.type == "cpu":
+        if packed is not None:
+            weights = [t for pair in zip(packed.hwio, packed.biases) for t in pair]
         return dense_block_reference(x, *weights)
     if x.device.type != "cuda":
         raise ValueError(f"dense_block runs on cuda or cpu, got {x.device}")
-    _check_args(x, weights)
+    if packed is None:
+        _check_args(x, weights)
+        packed = pack_weights(weights[0::2], weights[1::2], x.dtype)
+    else:
+        check_packed(x, packed)
     lib, level = level_kernel(x.dtype)
-    return launch_levels(x, weights[0::2], weights[1::2], lib, "dense_block", level, dense_block)
+    return launch_levels(x, packed.kernel, packed.biases, lib, "dense_block", level, dense_block)
 
 
 def level_kernel(dtype: torch.dtype):
     """(library, level launcher) of this kernel for `dtype`, built at first
-    use; the launcher takes `launch_levels`'s `level` arguments."""
+    use; the launcher takes `launch_levels`'s `level` arguments, with the
+    weights in `pack_weights`'s kernel layout for `dtype`."""
     lib = cuda_build.library("dense_block", _SIGNATURES)
     code = _DTYPE_CODE[dtype]
     return lib, lambda device, *args: lib.dense_block_level(device, code, *args)
@@ -217,11 +287,11 @@ def make_fast_rrdb_forward(model, params, dtype=torch.bfloat16, device="cuda:0")
 
     `params` is the Flax-layout tree (any source `utils.weights.flax_tree`
     takes, a state_dict included); the S2D weights are transformed in f32
-    numpy and only then cast to `dtype` (`s2d_forward._transform_trunk`).
-    conv_first, trunk_conv and the head stay cuDNN convolutions at full
-    resolution. f32 runs with TF32 off. The JAX version's `tile` and
-    `interpret` arguments choose the TPU kernel's tiling and its interpreter
-    and have no counterpart here."""
+    numpy and only then cast to `dtype` (`s2d_forward._transform_trunk`),
+    and each dense block is packed once, here. conv_first, trunk_conv and
+    the head stay cuDNN convolutions at full resolution. f32 runs with TF32
+    off. The JAX version's `tile` and `interpret` arguments choose the TPU
+    kernel's tiling and its interpreter and have no counterpart here."""
     from ..models.rrdb import GeneratorRRDB_SR, conv3x3_nhwc, pixel_shuffle
     from ..utils.weights import flax_tree
     from .precision import lrelu
@@ -231,7 +301,7 @@ def make_fast_rrdb_forward(model, params, dtype=torch.bfloat16, device="cuda:0")
     p = flax_tree(params)
     trunk = p["trunk"]
     blocks = [
-        [[t for pair in rdb for t in pair] for rdb in rrdb]
+        [pack_weights([w for w, _ in rdb], [b for _, b in rdb], dtype) for rdb in rrdb]
         for rrdb in _transform_trunk(trunk, model.trunk.num_res_blocks, dtype, device)["blocks"]
     ]
 
@@ -248,7 +318,7 @@ def make_fast_rrdb_forward(model, params, dtype=torch.bfloat16, device="cuda:0")
     def forward(x: Tensor) -> Tensor:
         x = x.to(dtype)
         fea = conv3x3_nhwc(x, *first)
-        t = rrdb_chain(s2d(fea).contiguous(), blocks, lambda t, flat: dense_block(t, *flat))
+        t = rrdb_chain(s2d(fea).contiguous(), blocks, dense_block)
         fea = fea + conv3x3_nhwc(d2s(t), *tconv)
         if is_sr:
             for up in ups:

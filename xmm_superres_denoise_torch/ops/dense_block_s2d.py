@@ -14,12 +14,14 @@ input, HWIO weights cast to the input's dtype, f32 accumulation, output
   shapes K1 rejects (H % h_strip, W % w_tile); the tiling arguments do not
   drive the CUDA tiling. For a CUDA tensor it launches five level kernels
   (one per level, over one NHWC concat buffer, `dense_block.launch_levels`)
-  or raises; there is no fallback. bf16 levels are the tensor-core kernel
-  of `csrc/dense_block_s2d.cu`; f32 levels are K2's CUDA-core kernel
+  or raises; there is no fallback. bf16 levels are the tensor-core level
+  of `csrc/dense_block_s2d.cu` (`dense_level_bf16.cuh`, K2's bf16 level
+  too); f32 levels are K2's CUDA-core kernel
   (`csrc/dense_block.cu`), since TF32 would leave the f32 parity class. For
   a CPU tensor it runs the plain version.
-* `pack_weights` casts and lays the weights out once, for a forward that
-  calls the block many times: bf16 as (9, C, k*C), the K-major order of the
+* `pack_weights` (`PackedBlock`, both from `ops/dense_block.py`, which K2
+  shares) casts and lays the weights out once, for a forward that calls
+  the block many times: bf16 as (9, C, k*C), the K-major order of the
   tensor cores' B operand; f32 as HWIO for the CUDA-core kernel. Raw
   tuples are packed on every call.
 * `dense_block_s2d_reference` is the plain version: the gather form, f32
@@ -29,46 +31,27 @@ input, HWIO weights cast to the input's dtype, f32 accumulation, output
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple, Union
+from typing import Sequence, Union
 
 import torch
 
 from . import cuda_build
-from .dense_block import dense_block_reference, launch_levels, level_kernel
+from .dense_block import (  # noqa: F401  (PackedBlock, pack_weights: re-exported)
+    PackedBlock,
+    check_packed,
+    dense_block_reference,
+    launch_levels,
+    level_kernel,
+    pack_weights,
+)
 
 Tensor = torch.Tensor
 
-_DTYPES = (torch.float32, torch.bfloat16)
 _CHANNELS = 128  # output channels per block of the bf16 kernel
-_MAX_GRID_Z = 65535
 _I, _P = cuda_build.I, cuda_build.P
 _SIGNATURES = {
     "dense_block_s2d_level": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P],
 }
-
-
-class PackedBlock(NamedTuple):
-    """The weights of one block, cast and laid out once."""
-
-    hwio: Tuple[Tensor, ...]  # w_k (3, 3, k*C, C), for the plain version
-    biases: Tuple[Tensor, ...]  # b_k (C,)
-    kernel: Tuple[Tensor, ...]  # what the kernel reads: bf16 (9, C, k*C), f32 HWIO
-
-
-def pack_weights(
-    weights: Sequence[Tensor], biases: Sequence[Tensor], dtype: torch.dtype
-) -> PackedBlock:
-    """Cast the block's weights and biases to `dtype` (as K1 casts them to
-    `x.dtype`) and lay them out for the kernel, on the weights' device."""
-    hwio = tuple(w.to(dtype).contiguous() for w in weights)
-    bs = tuple(b.to(dtype).contiguous() for b in biases)
-    if dtype == torch.bfloat16:
-        kernel = tuple(
-            w.reshape(9, w.shape[2], w.shape[3]).transpose(1, 2).contiguous() for w in hwio
-        )
-    else:
-        kernel = hwio
-    return PackedBlock(hwio, bs, kernel)
 
 
 def dense_block_s2d_reference(
@@ -95,30 +78,7 @@ def _check_tiling(x: Tensor, h_strip: int, w_tile: int) -> None:
 
 def _check_args(x: Tensor, packed: PackedBlock) -> None:
     """Raise on anything the kernel does not take."""
-    b, h, w, c = x.shape
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"dense_block_s2d kernel takes float32 or bfloat16, got {x.dtype}")
-    if c % _CHANNELS:
-        raise ValueError(f"dense_block_s2d kernel needs C % 128 == 0, got C={c}")
-    if b * (c // 32) > _MAX_GRID_Z or b * h * w == 0:
-        raise ValueError(f"dense_block_s2d kernel cannot take shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("dense_block_s2d kernel needs a contiguous NHWC input")
-    if len(packed.kernel) != 5 or len(packed.biases) != 5:
-        raise ValueError("dense_block_s2d takes five weights and five biases")
-    for k in range(1, 6):
-        wk, bk = packed.kernel[k - 1], packed.biases[k - 1]
-        want = (9, c, k * c) if x.dtype == torch.bfloat16 else (3, 3, k * c, c)
-        if tuple(wk.shape) != want or tuple(bk.shape) != (c,):
-            raise ValueError(
-                f"level {k}: expected packed w {want} and b ({c},), got "
-                f"{tuple(wk.shape)} and {tuple(bk.shape)}"
-            )
-        for t in (wk, bk):
-            if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
-                raise ValueError(
-                    f"level {k}: weights must be contiguous {x.dtype} on {x.device}"
-                )
+    check_packed(x, packed, "dense_block_s2d", _CHANNELS)
 
 
 def dense_block_s2d(

@@ -28,6 +28,7 @@ Tensor = torch.Tensor
 PROBE_SHAPE = (2048, 128, 128)  # M, K, N of the TPU probe
 _I, _P = cuda_build.I, cuda_build.P
 _SIGNATURES = {"int8_gemm": [_I, _P, _P, _P, _I, _I, _I, _P]}
+_BM = 64  # output rows per block
 _MAX_GRID_Y = 65535
 
 
@@ -46,23 +47,25 @@ def int8_gemm(a: Tensor, b: Tensor) -> Tensor:
         raise ValueError(f"int8_gemm takes (M, K) x (K, N), got {tuple(a.shape)} x {tuple(b.shape)}")
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8_gemm takes int8, got {a.dtype} and {b.dtype}")
-    if a.device != b.device:
-        raise ValueError(f"int8_gemm operands on {a.device} and {b.device}")
-    if a.device.type == "cpu":
+    device = a.device
+    if b.device != device:
+        raise ValueError(f"int8_gemm operands on {device} and {b.device}")
+    if device.type == "cpu":
         return int8_gemm_reference(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"int8_gemm runs on cuda or cpu, got {a.device}")
+    if device.type != "cuda":
+        raise ValueError(f"int8_gemm runs on cuda or cpu, got {device}")
     m, k = a.shape
     n = b.shape[1]
-    if k % 32 or n % 8 or m == 0 or (m + 127) // 128 > _MAX_GRID_Y:
+    if k % 32 or n % 8 or m == 0 or (m + _BM - 1) // _BM > _MAX_GRID_Y:
         raise ValueError(f"int8_gemm kernel needs K % 32 == 0 and N % 8 == 0, got "
                          f"M={m}, K={k}, N={n}")
-    if not (a.is_contiguous() and b.is_contiguous()) or a.data_ptr() % 16 or b.data_ptr() % 4:
+    a_ptr, b_ptr = a.data_ptr(), b.data_ptr()
+    if not (a.is_contiguous() and b.is_contiguous()) or a_ptr % 16 or b_ptr % 4:
         raise ValueError("int8_gemm kernel needs contiguous, aligned operands")
     lib = cuda_build.library("int8_gemm", _SIGNATURES)
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    err = lib.int8_gemm(cuda_build.device_index(a), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                        m, n, k, cuda_build.stream_of(a))
+    out = torch.empty((m, n), dtype=torch.int32, device=device)
+    err = lib.int8_gemm(cuda_build.device_index(a), a_ptr, b_ptr, out.data_ptr(), m, n, k,
+                        cuda_build.stream_of(a))
     cuda_build.check(lib, "int8_gemm", err, "int8_gemm")
     int8_gemm.launches += 1
     return out

@@ -28,8 +28,8 @@ import torch
 
 from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR, conv3x3_nhwc
 from ..utils.weights import flax_tree
-from .dense_block import rrdb_chain
-from .dense_block_s2d import dense_block_s2d, pack_weights
+from .dense_block import pack_weights, rrdb_chain
+from .dense_block_s2d import dense_block_s2d
 from .precision import lrelu, true_f32
 from .space_to_depth import d2s, s2d, s2d_conv_weights
 
