@@ -14,7 +14,8 @@ Phases, each printing its result and its seconds:
    version, a library call where one computes the same function, and its
    bound: K2 at (2, 416, 416, 32) and K1 at (2, 208, 208, 128) in f32 (TF32
    off) and bf16, with K2 also held on K1's inputs (C = 128, the fast
-   forward's shape; bf16 K2 runs K1's tensor-core level there); P at the
+   forward's shape; bf16 K2 runs K1's wgmma level there, and the bf16 line
+   adds that level's share of its bound and its ptxas report); P at the
    probe's (2048, 128) x (128, 128), exact, also timed on the device alone
    (torch.profiler) beside torch._int_mm, with the host time per call; K3 at
    the trunk's level 5 (2, 208, 208, 640) -> 128 and conv_first
@@ -48,6 +49,7 @@ from __future__ import annotations
 import faulthandler
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -66,6 +68,9 @@ SERVE_BATCH = 2
 NATIVE_HW = (411, 403)  # numpy (NAXIS2, NAXIS1) of an EPIC-pn detxy image
 KERNEL_SHAPE = (2, 416, 416, 32)  # the trunk's dense-block input when serving
 S2D_SHAPE = (2, 208, 208, 128)  # the S2D trunk's dense-block input when serving
+# 11 x 12 tiles of 16 x 16 px = 132 blocks, one per SM: the bf16 level with no
+# partial last wave (S2D_SHAPE has 338 tiles, 2.56 waves)
+ONE_WAVE_SHAPE = (1, 176, 192, 128)
 K3_SHAPES = {"level5": ((2, 208, 208, 640), 128), "conv_first": ((2, 208, 208, 4), 128)}
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
@@ -108,21 +113,35 @@ def phase_device() -> dict:
     return {"platform": "gpu", "kind": kind, "count": count}
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Build every kernel library at once; returns each one's compiler log."""
     from xmm_superres_denoise_torch.ops import cuda_build
 
     t0 = time.perf_counter()
     say(f"[build] nvcc {' '.join(cuda_build.NVCC_FLAGS)}, {len(cuda_build.LIBRARIES)} "
         "libraries at once")
+    logs = {}
     with ThreadPoolExecutor(len(cuda_build.LIBRARIES)) as pool:
         builds = {n: pool.submit(cuda_build.build, n) for n in cuda_build.LIBRARIES}
     for name, fut in builds.items():
-        lib, log, secs = fut.result()
+        lib, logs[name], secs = fut.result()
         say(f"[build] {name} -> {lib.name} ({secs:.2f} s)")
-        for line in log.splitlines():
+        for line in logs[name].splitlines():
             if line.strip():
                 say(f"[build]   {line.strip()}")
     say(f"[build] all ({time.perf_counter() - t0:.2f} s)")
+    return logs
+
+
+def _ptxas_report(log: str, kernel: str) -> str:
+    """Registers and spills of the entry `kernel` from a `-Xptxas -v` log."""
+    m = re.search(
+        rf"Function properties for \S*{kernel}\S*\s+\d+ bytes stack frame, (\d+) bytes spill "
+        rf"stores, (\d+) bytes spill loads\s+ptxas info\s*: Used (\d+) registers", log)
+    if m is None:
+        return f"no ptxas report for {kernel}"
+    return (f"{m.group(3)} registers at launch, {m.group(1)} B spill stores, "
+            f"{m.group(2)} B spill loads")
 
 
 def _block_inputs(shape, dtype, device, seed=0):
@@ -394,9 +413,11 @@ def phase_serve(tmp: Path):
     return launches, ctx
 
 
-def phase_kernel_s2d(dtype) -> dict:
+def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
+    from xmm_superres_denoise_torch.ops import cuda_build
     from xmm_superres_denoise_torch.ops.dense_block import dense_block
     from xmm_superres_denoise_torch.ops.dense_block_s2d import (
+        _SIGNATURES,
         dense_block_s2d,
         dense_block_s2d_reference,
         pack_weights,
@@ -434,6 +455,22 @@ def phase_kernel_s2d(dtype) -> dict:
     nbytes = x.element_size() * (2 * x.numel() + sum(t.numel() for t in flat))
     bound_ms, bound_by = _bound(flops, nbytes, dtype)
     name = "f32" if dtype == torch.float32 else "bf16"
+    level = ""
+    if dtype == torch.bfloat16:
+        smem = cuda_build.library("dense_block_s2d", _SIGNATURES).dense_block_s2d_smem_bytes()
+        xw, fw = _block_inputs(ONE_WAVE_SHAPE, dtype, dev)
+        pw = pack_weights(fw[0::2], fw[1::2], dtype)
+        with torch.inference_mode():
+            wave_ms = _time_ms(lambda: dense_block_s2d(xw, pw, h_strip=16, w_tile=16), iters=10)
+        wave_flops = flops * math.prod(ONE_WAVE_SHAPE) / math.prod(S2D_SHAPE)
+        level = (
+            f"; the wgmma level (conv3x3_wgmma_kernel) reaches {bound_ms / ms:.1%} of the bound "
+            f"(K2 at C=128 {bound_ms / k2_ms:.1%}); one full wave {ONE_WAVE_SHAPE} (132 tiles): "
+            f"{wave_ms:.4f} ms, {wave_flops / (wave_ms * 1e-3) / 1e12:.2f} TFLOP/s, against "
+            f"{flops / (ms * 1e-3) / 1e12:.2f} at 338 tiles (2.56 waves); ptxas: "
+            f"{_ptxas_report(build_logs['dense_block_s2d'], 'conv3x3_wgmma_kernel')}; "
+            f"{smem} B of dynamic shared memory per block"
+        )
     say(
         f"[kernel] dense_block_s2d {name} {S2D_SHAPE}: max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}, max|plain| {scale:.3f}), max|cudnn-plain| {lib_err:.3e}; "
@@ -442,8 +479,8 @@ def phase_kernel_s2d(dtype) -> dict:
         f"nominal, {nbytes / 1e6:.1f} MB; achieved {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
         f"S2D, {nominal / (ms * 1e-3) / 1e12:.2f} TFLOP/s nominal); dense_block (K2, the fast "
         f"forward's block) on the same inputs: max|kernel-plain| {k2_err:.3e} (same tol), "
-        f"K2 {k2_ms:.4f} ms beside K1 {ms:.4f} ms, K2/cudnn {k2_ms / library_ms:.2f} "
-        f"({time.perf_counter() - t0:.2f} s)"
+        f"K2 {k2_ms:.4f} ms beside K1 {ms:.4f} ms, K1/cudnn {ms / library_ms:.2f}, K2/cudnn "
+        f"{k2_ms / library_ms:.2f}{level} ({time.perf_counter() - t0:.2f} s)"
     )
     if not finite or not err <= tol:
         raise AssertionError(f"dense_block_s2d {name} disagrees with its plain version: {err} > {tol}")
@@ -742,12 +779,13 @@ def _profile_group(name: str) -> str:
         return "K2/K1 f32 direct conv (CUDA cores)"
     if "int8_gemm_kernel" in name:
         return "P int8 GEMM"
+    # before the library match below: the port's own names hold "conv"
+    if "conv3x3_wgmma" in name:
+        return "K1/K2 bf16 wgmma level, 16x16 px x 128 ch"
     if "conv3x3_kernel" in name:
-        if "S8" in name:
-            return "K3 s8 implicit GEMM"
-        if "Tile<16" in name or "TileILi16E" in name:
-            return "K2 bf16 tensor-core level, 16x16 px x 32 ch"
-        return "K1/K2 bf16 tensor-core level, 8x16 px x 128 ch"
+        if "Bf16" in name:
+            return "K2 bf16 mma.sync level, 16x16 px x 32 ch"
+        return "K3 s8 implicit GEMM"
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass", "sm90")):
         return "cuDNN/cuBLAS convolution or GEMM"
@@ -797,10 +835,10 @@ def main() -> int:
     try:
         t_start = time.perf_counter()
         device = phase_device()
-        phase_build()
+        build_logs = phase_build()
         kernels = [phase_kernel(torch.float32), phase_kernel(torch.bfloat16)]
-        (s2d_f32, _), (s2d_bf16, k2_c128) = (phase_kernel_s2d(torch.float32),
-                                             phase_kernel_s2d(torch.bfloat16))
+        (s2d_f32, _), (s2d_bf16, k2_c128) = (phase_kernel_s2d(torch.float32, build_logs),
+                                             phase_kernel_s2d(torch.bfloat16, build_logs))
         p_entry, k3_entry = phase_kernel_p(), phase_kernel_k3()
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))

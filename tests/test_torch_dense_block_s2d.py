@@ -126,6 +126,20 @@ def test_kernel_argument_checks_raise(case):
         _check_args(x, packed)
 
 
+def test_kernel_argument_checks_refuse_misaligned_bf16_weights():
+    # the bf16 levels copy weights in 16-byte pieces (TMA at C % 128 == 0):
+    # a contiguous weight view 2 bytes past a boundary is refused, not copied
+    ws = [torch.zeros(3, 3, 128 * k, 128) for k in range(1, 6)]
+    packed = pack_weights(ws, [torch.zeros(128)] * 5, torch.bfloat16)
+    w2 = packed.kernel[1]
+    shifted = torch.zeros(w2.numel() + 1, dtype=torch.bfloat16)[1:].view(w2.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    x = torch.zeros(1, 4, 4, 128, dtype=torch.bfloat16)
+    _check_args(x, packed)
+    with pytest.raises(ValueError, match="level 2.*16-byte"):
+        _check_args(x, packed._replace(kernel=(packed.kernel[0], shifted) + packed.kernel[2:]))
+
+
 def test_other_devices_raise_instead_of_falling_back():
     ws = [torch.zeros(3, 3, 8 * k, 8, device="meta") for k in range(1, 6)]
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -13,9 +13,10 @@ Tolerances: f32 with TF32 off differs from cuDNN only in summation order
 versions, so they may differ by a few bf16 ulps (2^-8 relative). The int8
 kernels are exact: their int32 sums must equal the plain versions'.
 
-K2's bf16 levels run on the tensor cores in two tile families: C % 128 == 0
-takes K1's level (8 x 16 pixels x 128 channels), any other C % 32 == 0 a
-16 x 16 x 32 tile; the shapes below run both, with ragged edges.
+K2's bf16 levels run on the tensor cores in two kernels: C % 128 == 0
+takes K1's level (wgmma fed by TMA, 16 x 16 pixels x 128 channels), any
+other C % 32 == 0 an mma.sync 16 x 16 x 32 tile; the shapes below run both,
+with ragged edges.
 """
 
 from pathlib import Path
@@ -24,14 +25,22 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_SR
+from xmm_superres_denoise_torch.ops import cuda_build
 from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8, conv_i8_reference
 from xmm_superres_denoise_torch.ops.dense_block import (
     dense_block,
     dense_block_reference,
     pack_weights,
 )
-from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d, dense_block_s2d_reference
+from xmm_superres_denoise_torch.ops.dense_block import level_kernel
+from xmm_superres_denoise_torch.ops.dense_block_s2d import (
+    _SIGNATURES as _S2D_SIGNATURES,
+    dense_block_s2d,
+    dense_block_s2d_reference,
+)
 from xmm_superres_denoise_torch.ops.int8_gemm import PROBE_SHAPE, int8_gemm, int8_gemm_reference
 from xmm_superres_denoise_torch.ops.precision import true_f32
 from xmm_superres_denoise_torch.utils.weights import params_from_flax
@@ -184,6 +193,83 @@ def test_k1_matches_plain_version(cuda, shape, dtype):
     err = (out.float() - ref.float()).abs().max().item()
     tol = 1e-4 if dtype == torch.float32 else 4 * 2.0**-8 * ref.float().abs().max().item()
     assert err <= tol, (err, tol)
+
+
+def _level(buf, k, c, w, bias, dst, dst_stride, lib_name):
+    """Launch one bf16 level k directly: K1's library at C = 128, K2's above."""
+    b, h, wd, stride = buf.shape
+    args = (buf.data_ptr(), b, h, wd, stride, k * c, w.data_ptr(), bias.data_ptr(), c, dst,
+            dst_stride, int(k == 5), cuda_build.stream_of(buf))
+    if lib_name == "dense_block_s2d":
+        lib = cuda_build.library(lib_name, _S2D_SIGNATURES)
+        return lib, lib.dense_block_s2d_level(cuda_build.device_index(buf), *args)
+    lib, level = level_kernel(torch.bfloat16)
+    return lib, level(cuda_build.device_index(buf), *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 208, 208, 128), (1, 13, 21, 128), (3, 37, 45, 128),
+                                   (1, 13, 21, 256)])
+def test_wgmma_level_matches_plain_version(cuda, shape):
+    # each level k = 1..5 alone (cin = k*C) on a random concat buffer: one
+    # SAME 3x3 convolution in f32 plus bias, LeakyReLU into the buffer (k < 5)
+    # or 0.2 * v + x into the output (k = 5), one rounding to bf16; C = 256
+    # runs two channel groups through K2's library
+    b, h, w, c = shape
+    g = np.random.default_rng(c + h)
+    buf = torch.from_numpy(g.normal(size=(b, h, w, 5 * c)).astype(np.float32)).to(cuda, torch.bfloat16)
+    lib_name = "dense_block_s2d" if c == 128 else "dense_block"
+    for k in range(1, 6):
+        wk = torch.from_numpy((g.normal(size=(3, 3, k * c, c)) / np.sqrt(9 * k * c))
+                              .astype(np.float32)).to(cuda, torch.bfloat16)
+        bk = torch.from_numpy((g.normal(size=(c,)) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
+        packed = pack_weights([wk] * 5, [bk] * 5, torch.bfloat16).kernel[0]
+        with true_f32():
+            y = F.conv2d(buf[..., : k * c].permute(0, 3, 1, 2).float(),
+                         wk.float().permute(3, 2, 0, 1), bk.float(), padding=1)
+        y = y * 0.2 + buf[..., :c].permute(0, 3, 1, 2).float() if k == 5 else F.leaky_relu(y, 0.2)
+        ref = y.to(torch.bfloat16).permute(0, 2, 3, 1)
+        if k == 5:
+            out = torch.full((b, h, w, c), float("nan"), dtype=torch.bfloat16, device=cuda)
+            lib, err = _level(buf, k, c, packed, bk, out.data_ptr(), c, lib_name)
+        else:
+            buf[..., k * c : (k + 1) * c] = float("nan")
+            lib, err = _level(buf, k, c, packed, bk, buf[..., k * c :].data_ptr(), 5 * c, lib_name)
+            out = buf[..., k * c : (k + 1) * c]
+        cuda_build.check(lib, lib_name, err, f"level {k}")
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs().max().item()
+        tol = 4 * 2.0**-8 * ref.float().abs().max().item()
+        print(f"{shape} level {k}: max|kernel - plain| {diff:.3e} (tol {tol:.3e})")
+        assert bool(torch.isfinite(out).all()) and diff <= tol, (k, diff, tol)
+
+
+@pytest.mark.gpu
+def test_wgmma_level_refuses_misaligned_input(cuda):
+    # TMA needs 16-byte-aligned bases: the wrappers raise on a weight view
+    # that starts 2 bytes past a boundary, and the launch itself refuses a
+    # misaligned buffer with an error; neither falls back
+    x, ws = _block_inputs((1, 16, 16, 128), torch.bfloat16, cuda)
+    packed = pack_weights(ws[0::2], ws[1::2], torch.bfloat16)
+    w3 = packed.kernel[2]
+    shifted = torch.empty(w3.numel() + 1, dtype=w3.dtype, device=cuda)[1:].view(w3.shape)
+    shifted.copy_(w3)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    bad = packed._replace(kernel=packed.kernel[:2] + (shifted,) + packed.kernel[3:])
+    s2d_before, k2_before = dense_block_s2d.launches, dense_block.launches
+    with pytest.raises(ValueError, match="level 3.*16-byte"):
+        dense_block_s2d(x, bad, h_strip=16, w_tile=16)
+    with pytest.raises(ValueError, match="level 3.*16-byte"):
+        dense_block(x, bad)
+    assert (dense_block_s2d.launches, dense_block.launches) == (s2d_before, k2_before)
+    buf = torch.zeros(1 * 16 * 16 * 640 + 8, dtype=torch.bfloat16, device=cuda)
+    view = buf[1:1 + 16 * 16 * 640].view(1, 16, 16, 640)
+    out = torch.empty_like(x)
+    for lib_name in ("dense_block_s2d", "dense_block"):
+        lib, err = _level(view, 1, 128, packed.kernel[0], packed.biases[0], out.data_ptr(), 128,
+                          lib_name)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            cuda_build.check(lib, lib_name, err, "level 1")
 
 
 def _int8(shape, g):

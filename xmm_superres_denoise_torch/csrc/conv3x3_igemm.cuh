@@ -7,8 +7,9 @@
 // output channels; its warps are TH / 2 along M (two tile rows each, one
 // m16 tile per row) by BN / WARP_N along N, each a mma_tile warp tile of
 // 32 x WARP_N. The tile shape is a template parameter (`Tile` below):
-//   Tile128: TH = 8,  BN = 128, 8 warps of 32 x 64 (K1, K3, K2 at C % 128 == 0)
-//   Tile32:  TH = 16, BN = 32,  8 warps of 32 x 32 (K2 at C % 128 != 0)
+//   Tile128: TH = 8,  BN = 128, 8 warps of 32 x 64 (K3; the bf16 level at
+//            C % 128 == 0 runs conv3x3_wgmma.cuh instead)
+//   Tile32:  TH = 16, BN = 32,  8 warps of 32 x 32 (K2 bf16 at C % 128 != 0)
 // K is walked in chunks of CHUNK bytes of input channels: for each chunk the
 // block stages
 //   the (TH+2) x (16+2) input halo tile, CHUNK bytes per pixel, with zeros
@@ -25,7 +26,6 @@
 //
 // Shared memory per block (dynamic):
 //   Tile128, CHUNK = 32 (s8):   180 px * 48 B + 9 * 128 * 48 B =  8,640 + 55,296 =  63,936 B
-//   Tile128, CHUNK = 64 (bf16): 180 px * 80 B + 9 * 128 * 80 B = 14,400 + 92,160 = 106,560 B
 //   Tile32,  CHUNK = 64 (bf16): 324 px * 80 B + 9 *  32 * 80 B = 25,920 + 23,040 =  48,960 B
 // so two Tile128 blocks fit in an SM's shared memory, and four Tile32 blocks.
 #pragma once

@@ -26,14 +26,15 @@
 // alone takes 0.152 ms at 3.35 TB/s), 1.43 ms at 67 TFLOP/s in f32.
 //
 // What the design does about it. Two level kernels, chosen by dtype:
-// * bf16 runs on the tensor cores: the implicit GEMM of conv3x3_igemm.cuh
-//   (mma.sync m16n8k16 bf16 -> f32) through the level entry and epilogue of
+// * bf16 runs on the tensor cores through the level entry and epilogue of
 //   dense_level_bf16.cuh, which K1 shares. At C % 128 == 0 (the fast
-//   forward's C = 128) a block computes 8 x 16 pixels x 128 channels, K1's
-//   level; at any other C % 32 == 0 (the model's C = 32) 16 x 16 pixels x
-//   32 channels, 8 warps of 32 x 32, 48,960 B of shared memory (ptxas,
-//   nvcc 12.8: 122 registers, no spills). Weights come packed once as
-//   (9, C, k*C) bf16 (ops/dense_block.py: pack_weights).
+//   forward's C = 128) that is K1's level, wgmma fed by TMA on 16 x 16
+//   pixels x 128 channels (conv3x3_wgmma.cuh); at any other C % 32 == 0
+//   (the model's C = 32) the implicit GEMM of conv3x3_igemm.cuh (mma.sync
+//   m16n8k16 bf16 -> f32) on 16 x 16 pixels x 32 channels, 8 warps of
+//   32 x 32, 48,960 B of shared memory (ptxas, nvcc 12.9: 122 registers,
+//   no spills). Weights come packed once as (9, C, k*C) bf16
+//   (ops/dense_block.py: pack_weights).
 // * f32 stays on the CUDA cores (the parity class forbids TF32): a direct
 //   convolution with every multiply-add fed from shared memory. Each block
 //   computes a 16x16 pixel tile for 32 output channels; each of its 128

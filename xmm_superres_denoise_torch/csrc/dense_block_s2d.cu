@@ -21,16 +21,18 @@
 // TPU kernel's per-level mask to the image box computes.
 //
 // bf16: the tensor-core level of dense_level_bf16.cuh, which K2's bf16
-// levels share: the implicit GEMM of conv3x3_igemm.cuh, mma.sync m16n8k16
-// bf16 -> f32; per level M = output pixels, N = 128, K = 9 * k * 128, the
-// (M, k*128) x (k*128, 128) products that the TPU body issues per tap, on
-// its Tile128 (8 x 16 pixels x 128 channels, chunks of 32 channels = 64
-// bytes, 106,560 B of dynamic shared memory per block). Weights come packed
+// levels share; at C = 128 that is conv3x3_wgmma.cuh: per level M = output
+// pixels, N = 128, K = 9 * k * 128, the (M, k*128) x (k*128, 128) products
+// that the TPU body issues per tap, as wgmma.mma_async m64n128k16 bf16 ->
+// f32 on 16 x 16 pixel tiles, with the weights through a 6-stage TMA ring
+// and the activations from a double-buffered TMA halo box (its note says
+// what bounds it and what the design does about it). Weights come packed
 // once per forward as (9, C, k*C) bf16 (ops/dense_block.py: pack_weights).
 // f32 has no entry here: the wrapper launches K2's direct convolution on
 // the CUDA cores (dense_block.cu, HWIO weights), because TF32 would leave
 // the f32 parity class.
-// ptxas (nvcc 12.8, sm_90a): 128 registers, no spills.
+// ptxas (nvcc 12.9, sm_90a): 168 registers at launch (setmaxnreg gives the
+// consumers 232, the producer 40), no spills, 72 HGMMA in the SASS.
 //
 // What bounds it on this card. At the serving shape (2, 208, 208, 128) one
 // block is 383 GFLOP as computed (4x the nominal 95.7 GFLOP of the 416^2 x
@@ -57,6 +59,9 @@ int dense_block_s2d_level(int device, const void* buf, int B, int H, int W,
   return dense_level_bf16::launch(buf, B, H, W, buf_stride, cin, w, bias, C, dst, dst_stride,
                                   residual, static_cast<cudaStream_t>(stream));
 }
+
+// Dynamic shared memory that one bf16 level block asks for at launch.
+int dense_block_s2d_smem_bytes() { return conv3x3_wgmma::SMEM; }
 
 const char* dense_block_s2d_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,25 +1,26 @@
 // One bf16 level of the residual dense block on the tensor cores, shared by
 // K2 (dense_block.cu, any C % 32 == 0) and K1 (dense_block_s2d.cu, C = 128):
-// the one copy of the level's epilogue and of its choice of tile.
+// the one copy of the level's epilogue and of its choice of kernel.
 //
 // Level k is a SAME 3x3 convolution over the concat prefix [0, k*C) of the
-// (B, H, W, buf_stride) bf16 buffer, with f32 accumulation and an f32 bias,
-// on the implicit GEMM of conv3x3_igemm.cuh (mma.sync m16n8k16 bf16 -> f32,
-// chunks of 32 channels = 64 bytes). The epilogue, in f32 with one rounding
-// to bf16 at the store:
+// (B, H, W, buf_stride) bf16 buffer, with f32 accumulation and an f32 bias.
+// The epilogue, in f32 with one rounding to bf16 at the store:
 //   k < 5 : LeakyReLU(0.2), stored to channels [k*C, (k+1)*C)
 //   k = 5 : 0.2 * v + x, stored to the output (B, H, W, C)
 // which is what the TPU kernels compute per level (one rounding per level).
 //
-// Tile: C % 128 == 0 takes Tile128 (8 x 16 pixels x 128 channels, K1's
-// level); any other C % 32 == 0 takes Tile32 (16 x 16 pixels x 32 channels,
-// grid z = B * C / 32): at C = 32 the weight slice of a block is small, so
-// the block covers more pixels instead.
+// Kernel: C % 128 == 0 takes conv3x3_wgmma.cuh (wgmma fed by TMA, 16 x 16
+// pixels x 128 channels per block: K1's level and the fast forward's K2);
+// any other C % 32 == 0 takes the mma.sync implicit GEMM of
+// conv3x3_igemm.cuh on its Tile32 (16 x 16 pixels x 32 channels, grid z =
+// B * C / 32): at C = 32 the weight slice of a block is small, so the block
+// covers more pixels instead.
 #pragma once
 
 #include <cuda_bf16.h>
 
 #include "conv3x3_igemm.cuh"
+#include "conv3x3_wgmma.cuh"
 
 namespace dense_level_bf16 {
 
@@ -52,8 +53,9 @@ struct Epilogue {
 // w is packed (9, C, cin) bf16. buf: the concat buffer, buf_stride elements
 // between pixels, read over channels [0, cin); dst: the level's first output
 // channel, dst_stride elements between pixels; residual != 0 for level 5.
-// C % 32 == 0 and cin % 32 == 0 (checked by the Python wrappers). Returns
-// the cudaError_t of the launch.
+// C % 32 == 0 and cin % 32 == 0 (checked by the Python wrappers; at
+// C % 128 == 0 also the 16-byte alignment TMA needs). Returns the
+// cudaError_t of the launch.
 inline int launch(const void* buf, int B, int H, int W, int buf_stride, int cin,
                   const void* w, const void* bias, int C, void* dst, int dst_stride,
                   int residual, cudaStream_t stream) {
@@ -61,8 +63,7 @@ inline int launch(const void* buf, int B, int H, int W, int buf_stride, int cin,
                      static_cast<const __nv_bfloat16*>(buf), buf_stride,
                      static_cast<__nv_bfloat16*>(dst), dst_stride, residual};
   if (C % 128 == 0)
-    return igemm::launch<mma_tile::Bf16, 64, igemm::Tile128>(buf, B, H, W, buf_stride * 2,
-                                                             cin * 2, w, C, epi, stream);
+    return conv3x3_wgmma::launch(buf, B, H, W, buf_stride, cin, w, C, epi, stream);
   return igemm::launch<mma_tile::Bf16, 64, igemm::Tile32>(buf, B, H, W, buf_stride * 2,
                                                           cin * 2, w, C, epi, stream);
 }

@@ -109,7 +109,8 @@ def _check_tensors(x: Tensor, level: int, tensors) -> None:
 def check_packed(x: Tensor, packed: PackedBlock, name: str = "dense_block",
                  multiple: int = _OUT_CHANNELS_PER_BLOCK) -> None:
     """Raise on anything the level kernels do not take from `x` and a
-    `PackedBlock` (K2: C % 32 == 0; K1 passes its C % 128)."""
+    `PackedBlock` (K2: C % 32 == 0; K1 passes its C % 128); bf16 weights
+    must also start on a 16-byte boundary."""
     _check_input(x, name, multiple)
     c = x.shape[-1]
     if len(packed.kernel) != 5 or len(packed.biases) != 5:
@@ -123,6 +124,13 @@ def check_packed(x: Tensor, packed: PackedBlock, name: str = "dense_block",
                 f"{tuple(wk.shape)} and {tuple(bk.shape)}"
             )
         _check_tensors(x, k, (wk, bk))
+        # the bf16 levels copy weights in 16-byte pieces (TMA boxes at
+        # C % 128 == 0, cp.async at C = 32); TMA refuses an unaligned base
+        if x.dtype == torch.bfloat16 and wk.data_ptr() % 16:
+            raise ValueError(
+                f"level {k}: packed w must start on a 16-byte boundary for the kernel's "
+                f"copies, got an address {wk.data_ptr() % 16} bytes past one"
+            )
 
 
 def _check_args(x: Tensor, weights) -> None:

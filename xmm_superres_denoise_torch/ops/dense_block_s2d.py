@@ -16,7 +16,8 @@ input, HWIO weights cast to the input's dtype, f32 accumulation, output
   (one per level, over one NHWC concat buffer, `dense_block.launch_levels`)
   or raises; there is no fallback. bf16 levels are the tensor-core level
   of `csrc/dense_block_s2d.cu` (`dense_level_bf16.cuh`, K2's bf16 level
-  too); f32 levels are K2's CUDA-core kernel
+  too: at C = 128 `wgmma` fed by TMA, `csrc/conv3x3_wgmma.cuh`, which
+  needs weights on a 16-byte boundary); f32 levels are K2's CUDA-core kernel
   (`csrc/dense_block.cu`), since TF32 would leave the f32 parity class. For
   a CPU tensor it runs the plain version.
 * `pack_weights` (`PackedBlock`, both from `ops/dense_block.py`, which K2
