@@ -15,7 +15,9 @@ Phases, each printing its result and its seconds:
    bound: K2 at (2, 416, 416, 32) and K1 at (2, 208, 208, 128) in f32 (TF32
    off) and bf16, with K2 also held on K1's inputs (C = 128, the fast
    forward's shape; bf16 K2 runs K1's wgmma level there, and the bf16 line
-   adds that level's share of its bound and its ptxas report); P at the
+   adds that level's share of its bound and its ptxas report; the f32 lines
+   add the FFMA level's TFLOP/s, share of its bound, time at one full round
+   of tiles, ptxas report and shared memory); P at the
    probe's (2048, 128) x (128, 128), exact, also timed on the device alone
    (torch.profiler) beside torch._int_mm, with the host time per call; K3 at
    the trunk's level 5 (2, 208, 208, 640) -> 128 and conv_first
@@ -34,8 +36,9 @@ Phases, each printing its result and its seconds:
    True)` in bf16 (int8 convolutions on K3, P's exactness check at build),
    held to the 40 dB int8 gate against the f32 plain forward;
 7. profile: one warm batch of each serving mode (model f32 and bf16, S2D
-   bf16, fast bf16, int8) traced with torch.profiler: device-busy time per
-   image, idle share, and busy time by kernel group.
+   f32 and bf16, fast f32 and bf16, int8) traced with torch.profiler:
+   device-busy time per image, idle share, and busy time by kernel group;
+   a trace that lost some of the port's kernel launches is taken again.
 
 The last two lines are a `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
@@ -71,6 +74,11 @@ S2D_SHAPE = (2, 208, 208, 128)  # the S2D trunk's dense-block input when serving
 # 11 x 12 tiles of 16 x 16 px = 132 blocks, one per SM: the bf16 level with no
 # partial last wave (S2D_SHAPE has 338 tiles, 2.56 waves)
 ONE_WAVE_SHAPE = (1, 176, 192, 128)
+# the f32 level's tiles (conv3x3_f32.cuh: 10 x 16 px at C = 32, four blocks
+# per SM; 14 x 16 px at C = 128, one block per SM) in exactly one round on
+# 132 SMs: 24 x 22 = 528 and 12 x 11 = 132 tiles
+F32_ROUND_SHAPES = {32: (1, 240, 352, 32), 128: (1, 168, 176, 128)}
+F32_SOURCE = "xmm_superres_denoise_torch/csrc/conv3x3_f32.cuh"  # K2's and K1's f32 level
 K3_SHAPES = {"level5": ((2, 208, 208, 640), 128), "conv_first": ((2, 208, 208, 4), 128)}
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
@@ -207,7 +215,34 @@ def _bound(flops: float, nbytes: float, dtype) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernel(dtype) -> dict:
+def _f32_level(build_logs: dict, c: int, ms: float, flops: float, bound_ms: float) -> str:
+    """What an f32 `[kernel]` line adds about the FFMA level at width `c`,
+    timed at `ms` for `flops` against `bound_ms`: TFLOP/s and share of the
+    bound, the time of one full round of its tiles (no partial last round),
+    ptxas's report and the shared memory of a block."""
+    from xmm_superres_denoise_torch.ops import cuda_build
+    from xmm_superres_denoise_torch.ops.dense_block import _SIGNATURES, dense_block, pack_weights
+
+    shape = F32_ROUND_SHAPES[c]
+    x, ws = _block_inputs(shape, torch.float32, torch.device("cuda:0"))
+    packed = pack_weights(ws[0::2], ws[1::2], torch.float32)
+    with torch.inference_mode():
+        round_ms = _time_ms(lambda: dense_block(x, packed), iters=10)
+    round_flops = math.prod(shape[:3]) * 9 * c * c * sum(range(1, 6)) * 2
+    round_bound_ms = round_flops / PEAK_FLOPS[torch.float32] * 1e3
+    smem = cuda_build.library("dense_block", _SIGNATURES).dense_block_f32_smem_bytes(c)
+    co = 128 if c % 128 == 0 else 32
+    return (
+        f"; the FFMA level (conv3x3_f32_kernel<{co}>) runs at "
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {bound_ms / ms:.1%} of the bound; one full "
+        f"round of tiles {shape}: {round_ms:.4f} ms, "
+        f"{round_flops / (round_ms * 1e-3) / 1e12:.2f} TFLOP/s, {round_bound_ms / round_ms:.1%} "
+        f"of its bound; ptxas: {_ptxas_report(build_logs['dense_block'], f'conv3x3_f32_kernelILi{co}E')}; "
+        f"{smem} B of dynamic shared memory per block"
+    )
+
+
+def phase_kernel(dtype, build_logs: dict) -> dict:
     from xmm_superres_denoise_torch.ops.dense_block import (
         dense_block,
         dense_block_reference,
@@ -240,6 +275,7 @@ def phase_kernel(dtype) -> dict:
     nbytes = esize * (2 * x.numel() + sum(t.numel() for t in ws))
     bound_ms, bound_by = _bound(flops, nbytes, dtype)
     name = "f32" if dtype == torch.float32 else "bf16"
+    level = _f32_level(build_logs, c, ms, flops, bound_ms) if dtype == torch.float32 else ""
     say(
         f"[kernel] dense_block {name} {KERNEL_SHAPE}: max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}, max|plain| {scale:.3f}), max|cudnn-plain| {lib_err:.3e}; "
@@ -249,14 +285,14 @@ def phase_kernel(dtype) -> dict:
         f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; five-launch traffic "
         f"{_five_launch_bytes(KERNEL_SHAPE, x.element_size()) / 1e9:.3f} GB, "
         f"{_five_launch_bytes(KERNEL_SHAPE, x.element_size()) / PEAK_BYTES_PER_S * 1e3:.4f} ms "
-        f"at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s) ({time.perf_counter() - t0:.2f} s)"
+        f"at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s){level} ({time.perf_counter() - t0:.2f} s)"
     )
     if not finite or not err <= tol:
         raise AssertionError(f"dense_block {name} disagrees with its plain version: {err} > {tol}")
     return {
         "name": f"dense_block[{name}]",
         "route": "cuda",
-        "source": "xmm_superres_denoise_torch/csrc/dense_block.cu",
+        "source": F32_SOURCE if dtype == torch.float32 else "xmm_superres_denoise_torch/csrc/dense_block.cu",
         "replaces": "xmm_superres_denoise_tpu/ops/pallas_rrdb.py:141",
         "launches": None,  # filled from the serve run
         "max_abs_err": err,
@@ -409,7 +445,7 @@ def phase_serve(tmp: Path):
         raise AssertionError(f"bf16 serve too far from f32: {err16}")
     ctx = {"files": files, "raw": raw, "ref": ref, "hr_max": hr_max, "params": params,
            "engine": f32_engine, "ds_cfg": ds_cfg, "model_cfg": model_cfg,
-           "profile": {f"model {k} (K2)": e.predict for k, e in engines.items()}}
+           "profile": {f"model {k} (K2)": (e.predict, dense_block) for k, e in engines.items()}}
     return launches, ctx
 
 
@@ -471,6 +507,10 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
             f"{_ptxas_report(build_logs['dense_block_s2d'], 'conv3x3_wgmma_kernel')}; "
             f"{smem} B of dynamic shared memory per block"
         )
+    else:
+        level = (_f32_level(build_logs, c, ms, flops, bound_ms)
+                 + f"; K2 at C=128, the same level: {flops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+                 f"{bound_ms / k2_ms:.1%} of the bound")
     say(
         f"[kernel] dense_block_s2d {name} {S2D_SHAPE}: max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}, max|plain| {scale:.3f}), max|cudnn-plain| {lib_err:.3e}; "
@@ -487,10 +527,11 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
     if not k2_finite or not k2_err <= tol:
         raise AssertionError(f"dense_block {name} at C=128 disagrees with the plain version: "
                              f"{k2_err} > {tol}")
+    f32 = dtype == torch.float32
     k2_entry = {
         "name": f"dense_block[{name},C=128]",
         "route": "cuda",
-        "source": "xmm_superres_denoise_torch/csrc/dense_block.cu",
+        "source": F32_SOURCE if f32 else "xmm_superres_denoise_torch/csrc/dense_block.cu",
         "replaces": "xmm_superres_denoise_tpu/ops/pallas_rrdb.py:141",
         "launches": None,  # filled from the fast forward's run
         "max_abs_err": k2_err,
@@ -503,7 +544,7 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
     return {
         "name": f"dense_block_s2d[{name}]",
         "route": "cuda",
-        "source": "xmm_superres_denoise_torch/csrc/dense_block_s2d.cu",
+        "source": F32_SOURCE if f32 else "xmm_superres_denoise_torch/csrc/dense_block_s2d.cu",
         "replaces": "xmm_superres_denoise_tpu/ops/pallas_dense_block.py:158",
         "launches": None,  # filled from the s2d run
         "max_abs_err": err,
@@ -704,8 +745,7 @@ def phase_s2d(ctx) -> dict:
                 if not (np.isfinite(pred).all() and err <= tol * hr_max):
                     raise AssertionError(f"{label} {name} forward too far from the plain forward: {err}")
                 launches[f"{label} {name}"] = n
-                if dtype == torch.bfloat16:
-                    ctx["profile"][f"{label} bf16 ({'K1' if label == 's2d' else 'K2'})"] = fwd
+                ctx["profile"][f"{label} {name} ({'K1' if label == 's2d' else 'K2'})"] = (fwd, counter)
 
         t0 = time.perf_counter()
         dn = GeneratorRRDB_DN()
@@ -769,17 +809,21 @@ def phase_serve_int8(ctx, tmp: Path) -> dict:
         raise AssertionError(f"int8 serve launches {launches}, expected {expected} conv_i8")
     if not (np.isfinite(pred).all() and pred.shape == ref.shape and psnr >= INT8_PSNR_DB):
         raise AssertionError(f"int8 serve below the gate: PSNR {psnr:.2f} dB")
-    ctx["profile"]["int8 bf16 (K3)"] = engine.predict
+    ctx["profile"]["int8 bf16 (K3)"] = (engine.predict, conv_i8)
     return launches
+
+
+LIBRARY_GROUPS = ("cuDNN/cuBLAS convolution or GEMM", "elementwise, copies and the rest")
+TRACE_TRIES = 3
 
 
 def _profile_group(name: str) -> str:
     """The kernel group of a device kernel's name (demangled or not)."""
-    if "dense_level_kernel" in name:
-        return "K2/K1 f32 direct conv (CUDA cores)"
+    # before the library match below: the port's own names hold "conv"
+    if "conv3x3_f32_kernel" in name:
+        return "K2/K1 f32 FFMA level (CUDA cores)"
     if "int8_gemm_kernel" in name:
         return "P int8 GEMM"
-    # before the library match below: the port's own names hold "conv"
     if "conv3x3_wgmma" in name:
         return "K1/K2 bf16 wgmma level, 16x16 px x 128 ch"
     if "conv3x3_kernel" in name:
@@ -788,42 +832,56 @@ def _profile_group(name: str) -> str:
         return "K3 s8 implicit GEMM"
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass", "sm90")):
-        return "cuDNN/cuBLAS convolution or GEMM"
-    return "elementwise, copies and the rest"
+        return LIBRARY_GROUPS[0]
+    return LIBRARY_GROUPS[1]
+
+
+def _trace(fwd, x, counter):
+    """One warm call of `fwd`, then one traced: (the trace's CUDA kernel
+    events, the port kernel launches `counter` counted during it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fwd(x)  # warm
+        torch.cuda.synchronize()
+        before = counter.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fwd(x)
+            torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], counter.launches - before
 
 
 def phase_profile(ctx) -> None:
     """One warm batch of each serving mode traced with torch.profiler: the
     device's busy time per image (the one yardstick across modes), its idle
-    share of the kernels' span, and the busy time by kernel group."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    share of the kernels' span, and the busy time by kernel group. A trace
+    that holds fewer of the port's kernels than its counter launched lost
+    events (seen on the card now and then) and is taken again, up to
+    TRACE_TRIES times; the line says how many it holds."""
     x = ctx["engine"].prepare(torch.from_numpy(ctx["raw"][:SERVE_BATCH]).to("cuda:0"))
-    for mode, fwd in ctx["profile"].items():
+    for mode, (fwd, counter) in ctx["profile"].items():
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            fwd(x)  # warm
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fwd(x)
-                torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        for tries in range(1, TRACE_TRIES + 1):
+            kernels, launched = _trace(fwd, x, counter)
+            groups: dict = {}
+            for e in kernels:
+                g = groups.setdefault(_profile_group(e.name), [0.0, 0])
+                g[0] += e.time_range.elapsed_us()
+                g[1] += 1
+            traced = sum(n for g, (_, n) in groups.items() if g not in LIBRARY_GROUPS)
+            if traced == launched:
+                break
         if not kernels:
             raise AssertionError(f"{mode}: the profiler saw no CUDA kernel")
-        groups: dict = {}
-        for e in kernels:
-            g = groups.setdefault(_profile_group(e.name), [0.0, 0])
-            g[0] += e.time_range.elapsed_us()
-            g[1] += 1
         busy = sum(us for us, _ in groups.values())
         span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
         parts = ", ".join(f"{g} {us / 1e3 / SERVE_BATCH:.3f} ms ({n} launches)"
                           for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
         say(
             f"[profile] {mode}: device busy {busy / 1e3 / SERVE_BATCH:.3f} ms/image, idle "
-            f"{1 - busy / span:.1%} of the kernels' span; {parts} "
-            f"({time.perf_counter() - t0:.2f} s)"
+            f"{1 - busy / span:.1%} of the kernels' span; {parts}; port kernels traced "
+            f"{traced} of {launched} launched, {tries} trace(s) ({time.perf_counter() - t0:.2f} s)"
         )
 
 
@@ -836,9 +894,9 @@ def main() -> int:
         t_start = time.perf_counter()
         device = phase_device()
         build_logs = phase_build()
-        kernels = [phase_kernel(torch.float32), phase_kernel(torch.bfloat16)]
-        (s2d_f32, _), (s2d_bf16, k2_c128) = (phase_kernel_s2d(torch.float32, build_logs),
-                                             phase_kernel_s2d(torch.bfloat16, build_logs))
+        kernels = [phase_kernel(torch.float32, build_logs), phase_kernel(torch.bfloat16, build_logs)]
+        (s2d_f32, k2_c128_f32), (s2d_bf16, k2_c128) = (phase_kernel_s2d(torch.float32, build_logs),
+                                                       phase_kernel_s2d(torch.bfloat16, build_logs))
         p_entry, k3_entry = phase_kernel_p(), phase_kernel_k3()
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
@@ -850,9 +908,10 @@ def main() -> int:
         s2d_f32["launches"] = s2d_launches["s2d f32"]
         s2d_bf16["launches"] = s2d_launches["s2d bf16"]
         k2_c128["launches"] = s2d_launches["fast bf16"]
+        k2_c128_f32["launches"] = s2d_launches["fast f32"]
         p_entry["launches"] = int8_launches["int8_gemm"]
         k3_entry["launches"] = int8_launches["conv_i8"]
-        kernels += [k2_c128, s2d_f32, s2d_bf16, p_entry, k3_entry]
+        kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

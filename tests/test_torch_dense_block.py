@@ -18,6 +18,7 @@ import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
 
 from xmm_superres_denoise_torch.ops.dense_block import (
     _check_args,
+    check_packed,
     dense_block,
     dense_block_reference,
     pack_weights,
@@ -159,6 +160,33 @@ def test_kernel_argument_checks_raise(case):
 
 def test_good_kernel_arguments_pass_checks():
     _check_args(torch.zeros(2, 9, 7, 32), [torch.from_numpy(w) for w in _weights(32)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_packed_checks_refuse_misaligned_weights(dtype):
+    # both levels copy weights in 16-byte pieces (f32: TMA boxes of HWIO;
+    # bf16: TMA or cp.async): a contiguous weight view off a 16-byte boundary
+    # is refused, not copied. An f32 pack keeps the caller's tensors, so this
+    # also guards ten raw f32 tensors.
+    ws = [torch.from_numpy(w) for w in _weights(32)]
+    packed = pack_weights(ws[0::2], ws[1::2], dtype)
+    x = torch.zeros(1, 4, 4, 32, dtype=dtype)
+    check_packed(x, packed)
+    w2 = packed.kernel[1]
+    shifted = torch.zeros(w2.numel() + 1, dtype=dtype)[1:].view(w2.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == shifted.element_size()
+    with pytest.raises(ValueError, match="level 2.*16-byte"):
+        check_packed(x, packed._replace(kernel=(packed.kernel[0], shifted) + packed.kernel[2:]))
+
+
+def test_grid_limit_binds_bf16_only():
+    # bf16 levels launch B * C / 32 blocks along grid z (at most 65535); the
+    # f32 level's persistent grid has no such limit
+    ws = [torch.from_numpy(w) for w in _weights(32)]
+    x = torch.zeros(65600, 1, 1, 32)
+    check_packed(x, pack_weights(ws[0::2], ws[1::2], torch.float32))
+    with pytest.raises(ValueError, match="cannot take shape"):
+        check_packed(x.bfloat16(), pack_weights(ws[0::2], ws[1::2], torch.bfloat16))
 
 
 def test_other_devices_raise_instead_of_falling_back():

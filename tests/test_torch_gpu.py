@@ -16,9 +16,15 @@ kernels are exact: their int32 sums must equal the plain versions'.
 K2's bf16 levels run on the tensor cores in two kernels: C % 128 == 0
 takes K1's level (wgmma fed by TMA, 16 x 16 pixels x 128 channels), any
 other C % 32 == 0 an mma.sync 16 x 16 x 32 tile; the shapes below run both,
-with ragged edges.
+with ragged edges. The f32 levels of both blocks run one CUDA-core kernel
+(`csrc/conv3x3_f32.cuh`), 128 or 32 channels per block; its level tests
+cover both widths, ragged edges, and tile counts below and far above the
+resident blocks of its persistent grid.
 """
 
+import re
+import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -196,41 +202,40 @@ def test_k1_matches_plain_version(cuda, shape, dtype):
 
 
 def _level(buf, k, c, w, bias, dst, dst_stride, lib_name):
-    """Launch one bf16 level k directly: K1's library at C = 128, K2's above."""
+    """Launch one level k of `buf`'s dtype directly: K1's library (bf16 at
+    C = 128) or K2's."""
     b, h, wd, stride = buf.shape
     args = (buf.data_ptr(), b, h, wd, stride, k * c, w.data_ptr(), bias.data_ptr(), c, dst,
             dst_stride, int(k == 5), cuda_build.stream_of(buf))
     if lib_name == "dense_block_s2d":
         lib = cuda_build.library(lib_name, _S2D_SIGNATURES)
         return lib, lib.dense_block_s2d_level(cuda_build.device_index(buf), *args)
-    lib, level = level_kernel(torch.bfloat16)
+    lib, level = level_kernel(buf.dtype)
     return lib, level(cuda_build.device_index(buf), *args)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 208, 208, 128), (1, 13, 21, 128), (3, 37, 45, 128),
-                                   (1, 13, 21, 256)])
-def test_wgmma_level_matches_plain_version(cuda, shape):
-    # each level k = 1..5 alone (cin = k*C) on a random concat buffer: one
-    # SAME 3x3 convolution in f32 plus bias, LeakyReLU into the buffer (k < 5)
-    # or 0.2 * v + x into the output (k = 5), one rounding to bf16; C = 256
-    # runs two channel groups through K2's library
+def _levels_match_plain_version(cuda, shape, dtype, lib_name):
+    """Each level k = 1..5 alone (cin = k*C) on a random concat buffer: one
+    SAME 3x3 convolution in f32 plus bias, LeakyReLU into the buffer (k < 5)
+    or 0.2 * v + x into the output (k = 5), rounded once to `dtype`. The
+    output is NaN before the launch, so an unwritten pixel shows. bf16 is
+    held to 4 bf16 ulps x max|plain|, f32 (summation order only) to
+    1e-4 x max(1, max|plain|)."""
     b, h, w, c = shape
     g = np.random.default_rng(c + h)
-    buf = torch.from_numpy(g.normal(size=(b, h, w, 5 * c)).astype(np.float32)).to(cuda, torch.bfloat16)
-    lib_name = "dense_block_s2d" if c == 128 else "dense_block"
+    buf = torch.from_numpy(g.normal(size=(b, h, w, 5 * c)).astype(np.float32)).to(cuda, dtype)
     for k in range(1, 6):
         wk = torch.from_numpy((g.normal(size=(3, 3, k * c, c)) / np.sqrt(9 * k * c))
-                              .astype(np.float32)).to(cuda, torch.bfloat16)
-        bk = torch.from_numpy((g.normal(size=(c,)) * 0.1).astype(np.float32)).to(cuda, torch.bfloat16)
-        packed = pack_weights([wk] * 5, [bk] * 5, torch.bfloat16).kernel[0]
+                              .astype(np.float32)).to(cuda, dtype)
+        bk = torch.from_numpy((g.normal(size=(c,)) * 0.1).astype(np.float32)).to(cuda, dtype)
+        packed = pack_weights([wk] * 5, [bk] * 5, dtype).kernel[0]
         with true_f32():
             y = F.conv2d(buf[..., : k * c].permute(0, 3, 1, 2).float(),
                          wk.float().permute(3, 2, 0, 1), bk.float(), padding=1)
         y = y * 0.2 + buf[..., :c].permute(0, 3, 1, 2).float() if k == 5 else F.leaky_relu(y, 0.2)
-        ref = y.to(torch.bfloat16).permute(0, 2, 3, 1)
+        ref = y.to(dtype).permute(0, 2, 3, 1)
         if k == 5:
-            out = torch.full((b, h, w, c), float("nan"), dtype=torch.bfloat16, device=cuda)
+            out = torch.full((b, h, w, c), float("nan"), dtype=dtype, device=cuda)
             lib, err = _level(buf, k, c, packed, bk, out.data_ptr(), c, lib_name)
         else:
             buf[..., k * c : (k + 1) * c] = float("nan")
@@ -239,9 +244,106 @@ def test_wgmma_level_matches_plain_version(cuda, shape):
         cuda_build.check(lib, lib_name, err, f"level {k}")
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs().max().item()
-        tol = 4 * 2.0**-8 * ref.float().abs().max().item()
-        print(f"{shape} level {k}: max|kernel - plain| {diff:.3e} (tol {tol:.3e})")
+        scale = ref.float().abs().max().item()
+        tol = 4 * 2.0**-8 * scale if dtype == torch.bfloat16 else 1e-4 * max(1.0, scale)
+        print(f"{shape} {dtype} level {k}: max|kernel - plain| {diff:.3e} (tol {tol:.3e})")
         assert bool(torch.isfinite(out).all()) and diff <= tol, (k, diff, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 208, 208, 128), (1, 13, 21, 128), (3, 37, 45, 128),
+                                   (1, 13, 21, 256)])
+def test_wgmma_level_matches_plain_version(cuda, shape):
+    # C = 256 runs two channel groups through K2's library
+    _levels_match_plain_version(cuda, shape, torch.bfloat16,
+                                "dense_block_s2d" if shape[-1] == 128 else "dense_block")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (2, 416, 416, 32),   # the model's block: 1352 tiles, many more than resident blocks
+    (1, 13, 21, 32),     # 2 tiles, fewer than resident blocks; ragged
+    (3, 37, 45, 32),     # ragged in both directions
+    (2, 24, 40, 64),     # C = 64: two 32-channel groups
+    (1, 13, 21, 128),    # one 128-channel group, ragged
+    (2, 208, 208, 128),  # K1's and the fast forward's block: 338 tiles on one-block SMs
+    (1, 13, 21, 256),    # two 128-channel groups
+])
+def test_f32_level_matches_plain_version(cuda, shape):
+    # K1's f32 levels are K2's: one library serves both
+    _levels_match_plain_version(cuda, shape, torch.float32, "dense_block")
+
+
+@pytest.mark.gpu
+def test_f32_level_refuses_misaligned_input(cuda):
+    # the f32 level copies weights in 16-byte pieces and stores 16 bytes at
+    # a time: the wrappers raise on a weight view 4 bytes past a boundary,
+    # and the launch refuses a misaligned buffer; neither falls back
+    x, ws = _block_inputs((1, 16, 16, 128), torch.float32, cuda)
+    packed = pack_weights(ws[0::2], ws[1::2], torch.float32)
+    w3 = packed.kernel[2]
+    shifted = torch.empty(w3.numel() + 1, dtype=w3.dtype, device=cuda)[1:].view(w3.shape)
+    shifted.copy_(w3)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    bad = packed._replace(kernel=packed.kernel[:2] + (shifted,) + packed.kernel[3:])
+    s2d_before, k2_before = dense_block_s2d.launches, dense_block.launches
+    with pytest.raises(ValueError, match="level 3.*16-byte"):
+        dense_block_s2d(x, bad, h_strip=16, w_tile=16)
+    with pytest.raises(ValueError, match="level 3.*16-byte"):
+        dense_block(x, bad)
+    raw = list(ws)
+    raw[4] = shifted
+    with pytest.raises(ValueError, match="level 3.*16-byte"):
+        dense_block(x, *raw)
+    assert (dense_block_s2d.launches, dense_block.launches) == (s2d_before, k2_before)
+    buf = torch.zeros(1 * 16 * 16 * 640 + 4, dtype=torch.float32, device=cuda)
+    view = buf[1:1 + 16 * 16 * 640].view(1, 16, 16, 640)
+    out = torch.empty_like(x)
+    lib, err = _level(view, 1, 128, packed.kernel[0], packed.biases[0], out.data_ptr(), 128,
+                      "dense_block")
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda_build.check(lib, "dense_block", err, "level 1")
+
+
+@pytest.mark.gpu
+def test_f32_level_is_ffma_only(cuda):
+    # the f32 parity class has no TF32: the built f32 level kernels multiply
+    # with FFMA and hold no tensor-core instruction (HMMA, HGMMA)
+    path, _, _ = cuda_build.build("dense_block")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"FFMA": 0, "HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    f32 = {fn: c for fn, c in counts.items() if "conv3x3_f32_kernel" in fn}
+    print(f32)
+    assert len(f32) == 2  # the 32- and 128-channel blocks
+    for c in f32.values():
+        assert c["FFMA"] > 0 and c["HMMA"] == c["HGMMA"] == 0, c
+    assert not any("dense_level_kernel" in fn for fn in counts)
+
+
+@pytest.mark.gpu
+def test_f32_kernel_takes_batches_past_the_bf16_grid_limit(cuda):
+    # the f32 level launches a one-dimensional persistent grid, so B * C / 32
+    # may pass 65535 (the bf16 levels' grid z); here 65,600 one-pixel images
+    x, ws = _block_inputs((65600, 1, 1, 32), torch.float32, cuda)
+    before = dense_block.launches
+    with true_f32():
+        out = dense_block(x, *ws)
+        ref = dense_block_reference(x, *ws)
+    torch.cuda.synchronize()
+    assert dense_block.launches == before + 5
+    assert (out - ref).abs().max().item() <= 1e-4
+    with pytest.raises(ValueError, match="cannot take shape"):
+        dense_block(x.bfloat16(), *[w.bfloat16() for w in ws])
 
 
 @pytest.mark.gpu

@@ -28,9 +28,9 @@
 // and the activations from a double-buffered TMA halo box (its note says
 // what bounds it and what the design does about it). Weights come packed
 // once per forward as (9, C, k*C) bf16 (ops/dense_block.py: pack_weights).
-// f32 has no entry here: the wrapper launches K2's direct convolution on
-// the CUDA cores (dense_block.cu, HWIO weights), because TF32 would leave
-// the f32 parity class.
+// f32 has no entry here: the wrapper launches K2's f32 level on the CUDA
+// cores (dense_block.cu -> conv3x3_f32.cuh, FFMA only, HWIO weights),
+// because TF32 would leave the f32 parity class.
 // ptxas (nvcc 12.9, sm_90a): 168 registers at launch (setmaxnreg gives the
 // consumers 232, the producer 40), no spills, 72 HGMMA in the SASS.
 //

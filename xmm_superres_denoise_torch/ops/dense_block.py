@@ -10,8 +10,10 @@ output `0.2 * x5 + x`.
   `csrc/dense_block.cu` (five launches, one per level, over one NHWC concat
   buffer) or raises; there is no fallback. bf16 levels run on the tensor
   cores and read the weights packed as (9, C, k*C); f32 levels run on the
-  CUDA cores (TF32 would leave the f32 parity class) and read HWIO. For a
-  CPU tensor it runs the plain version.
+  CUDA cores (`csrc/conv3x3_f32.cuh`, FFMA only: TF32 would leave the f32
+  parity class) and read HWIO. Both copy weights in 16-byte pieces, so
+  weights off a 16-byte boundary are refused. For a CPU tensor it runs the
+  plain version.
 * `pack_weights` casts and lays a block's weights out once (`PackedBlock`),
   for a caller that runs the block many times: the model's
   `ResidualDenseBlock5C` keeps its pack, `make_fast_rrdb_forward` and the
@@ -49,7 +51,7 @@ from . import cuda_build
 Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_OUT_CHANNELS_PER_BLOCK = 32  # CO in the kernel source (a multiple of its CK)
+_OUT_CHANNELS_PER_BLOCK = 32  # channels of the narrowest bf16 block (its grid z is B * C / 32)
 _MAX_GRID_Z = 65535
 _SIGNATURES = {
     "dense_block_level": [cuda_build.I, cuda_build.I, cuda_build.P, *[cuda_build.I] * 5,
@@ -85,7 +87,8 @@ def pack_weights(
 
 def _check_input(x: Tensor, name: str, multiple: int) -> None:
     """Raise on an input the level kernels do not take: not NHWC, not f32
-    or bf16, C not a multiple of `multiple`, a grid too large, or not
+    or bf16, C not a multiple of `multiple`, a bf16 grid too large (the f32
+    level launches a one-dimensional persistent grid), or not
     contiguous."""
     if x.dim() != 4:
         raise ValueError(f"{name} expects NHWC (B, H, W, C), got {tuple(x.shape)}")
@@ -94,7 +97,8 @@ def _check_input(x: Tensor, name: str, multiple: int) -> None:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {x.dtype}")
     if c % multiple:
         raise ValueError(f"{name} kernel needs C % {multiple} == 0, got C={c}")
-    if b * (c // _OUT_CHANNELS_PER_BLOCK) > _MAX_GRID_Z or b * h * w == 0:
+    too_many = x.dtype == torch.bfloat16 and b * (c // _OUT_CHANNELS_PER_BLOCK) > _MAX_GRID_Z
+    if too_many or b * h * w == 0:
         raise ValueError(f"{name} kernel cannot take shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} kernel needs a contiguous NHWC input")
@@ -109,7 +113,7 @@ def _check_tensors(x: Tensor, level: int, tensors) -> None:
 def check_packed(x: Tensor, packed: PackedBlock, name: str = "dense_block",
                  multiple: int = _OUT_CHANNELS_PER_BLOCK) -> None:
     """Raise on anything the level kernels do not take from `x` and a
-    `PackedBlock` (K2: C % 32 == 0; K1 passes its C % 128); bf16 weights
+    `PackedBlock` (K2: C % 32 == 0; K1 passes its C % 128); the weights
     must also start on a 16-byte boundary."""
     _check_input(x, name, multiple)
     c = x.shape[-1]
@@ -124,9 +128,10 @@ def check_packed(x: Tensor, packed: PackedBlock, name: str = "dense_block",
                 f"{tuple(wk.shape)} and {tuple(bk.shape)}"
             )
         _check_tensors(x, k, (wk, bk))
-        # the bf16 levels copy weights in 16-byte pieces (TMA boxes at
-        # C % 128 == 0, cp.async at C = 32); TMA refuses an unaligned base
-        if x.dtype == torch.bfloat16 and wk.data_ptr() % 16:
+        # the levels copy weights in 16-byte pieces (TMA boxes in f32 and in
+        # bf16 at C % 128 == 0, cp.async in bf16 at C = 32); TMA refuses an
+        # unaligned base
+        if wk.data_ptr() % 16:
             raise ValueError(
                 f"level {k}: packed w must start on a 16-byte boundary for the kernel's "
                 f"copies, got an address {wk.data_ptr() % 16} bytes past one"
@@ -192,8 +197,7 @@ def dense_block(x: Tensor, *weights) -> Tensor:
     if packed is None:
         _check_args(x, weights)
         packed = pack_weights(weights[0::2], weights[1::2], x.dtype)
-    else:
-        check_packed(x, packed)
+    check_packed(x, packed)  # f32 packs keep the caller's tensors: their alignment too
     lib, level = level_kernel(x.dtype)
     return launch_levels(x, packed.kernel, packed.biases, lib, "dense_block", level, dense_block)
 

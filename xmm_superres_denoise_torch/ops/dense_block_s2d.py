@@ -17,9 +17,10 @@ input, HWIO weights cast to the input's dtype, f32 accumulation, output
   or raises; there is no fallback. bf16 levels are the tensor-core level
   of `csrc/dense_block_s2d.cu` (`dense_level_bf16.cuh`, K2's bf16 level
   too: at C = 128 `wgmma` fed by TMA, `csrc/conv3x3_wgmma.cuh`, which
-  needs weights on a 16-byte boundary); f32 levels are K2's CUDA-core kernel
-  (`csrc/dense_block.cu`), since TF32 would leave the f32 parity class. For
-  a CPU tensor it runs the plain version.
+  needs weights on a 16-byte boundary); f32 levels are K2's CUDA-core level
+  (`csrc/dense_block.cu` -> `csrc/conv3x3_f32.cuh`, FFMA only, also 16-byte
+  weight copies), since TF32 would leave the f32 parity class. For a CPU
+  tensor it runs the plain version.
 * `pack_weights` (`PackedBlock`, both from `ops/dense_block.py`, which K2
   shares) casts and lays the weights out once, for a forward that calls
   the block many times: bf16 as (9, C, k*C), the K-major order of the
