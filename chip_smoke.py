@@ -19,9 +19,14 @@ Phases, each printing its result and its seconds:
    add the FFMA level's TFLOP/s, share of its bound, time at one full round
    of tiles, ptxas report and shared memory); P at the
    probe's (2048, 128) x (128, 128), exact, also timed on the device alone
-   (torch.profiler) beside torch._int_mm, with the host time per call; K3 at
-   the trunk's level 5 (2, 208, 208, 640) -> 128 and conv_first
-   (2, 208, 208, 4) -> 128, exact;
+   (torch.profiler) beside torch._int_mm, with the host time per call; K3
+   raw (exact int32 sums) and fused (the int8 forward's epilogue inside,
+   bf16, bitwise equal to its plain composition in bf16 and f32) at the int8
+   forward's shapes: dense level 1 (codes into the concat), level 5
+   (residual; alone, and with the codes of the next block's input beside
+   it), conv_first and trunk_conv (with codes beside), upconv and HRconv, with
+   the route each took (s8 wgmma or mma.sync), TOP/s, share of the bound
+   and the route's ptxas report and shared memory;
 4. serve: 4 synthetic Poisson detxy FITS (403x411, so padding is exercised)
    served by `serve_files` through `InferenceEngine` at full esr_gen width and
    depth (416^2 -> 832^2) with the trained weights, in f32 and in bf16. The
@@ -38,7 +43,9 @@ Phases, each printing its result and its seconds:
 7. profile: one warm batch of each serving mode (model f32 and bf16, S2D
    f32 and bf16, fast f32 and bf16, int8) traced with torch.profiler:
    device-busy time per image, idle share, and busy time by kernel group;
-   a trace that lost some of the port's kernel launches is taken again.
+   a trace that lost some of the port's kernel launches is taken again;
+   for int8 also its elementwise launches per batch and K3's time against
+   the forward's int8 operations at the published peak.
 
 The last two lines are a `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
@@ -79,7 +86,21 @@ ONE_WAVE_SHAPE = (1, 176, 192, 128)
 # 132 SMs: 24 x 22 = 528 and 12 x 11 = 132 tiles
 F32_ROUND_SHAPES = {32: (1, 240, 352, 32), 128: (1, 168, 176, 128)}
 F32_SOURCE = "xmm_superres_denoise_torch/csrc/conv3x3_f32.cuh"  # K2's and K1's f32 level
-K3_SHAPES = {"level5": ((2, 208, 208, 640), 128), "conv_first": ((2, 208, 208, 4), 128)}
+# K3 at the int8 forward's shapes (S2D domain, batch 2): name -> (input
+# shape, Cout, the concat group its codes go to or None, LeakyReLU slope,
+# residual scale, requantises, writes its values); group 0 is the first
+# group of a fresh concat (the next dense block's, or upconv's, input);
+# level 5 without codes (a dense block that ends its RRDB) carries the JSON
+# entries
+K3_SHAPES = {
+    "level5": ((2, 208, 208, 640), 128, None, None, 0.2, False, True),
+    "level5+codes": ((2, 208, 208, 640), 128, 0, None, 0.2, True, True),
+    "level1": ((2, 208, 208, 128), 128, 1, 0.2, None, True, False),
+    "conv_first+codes": ((2, 208, 208, 4), 128, 0, None, None, True, True),
+    "trunk_conv+codes": ((2, 208, 208, 128), 128, 0, None, 1.0, True, True),
+    "upconv": ((2, 208, 208, 128), 512, None, 0.01, None, False, True),
+    "hrconv": ((2, 416, 416, 128), 128, None, 0.2, None, False, True),
+}
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -645,51 +666,133 @@ def phase_kernel_p() -> dict:
     }
 
 
-def phase_kernel_k3() -> dict:
-    from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8, conv_i8_reference, pack_weights
+def _k3_case(which: str, dev):
+    """Seeded operands of one K3 shape: (x8, HWIO w8, packed, the f32 and
+    bf16 epilogues, the bf16 and f32 residuals or None, the concat slice
+    the codes go to or None)."""
+    from xmm_superres_denoise_torch.ops.conv_i8 import Epilogue, pack_weights
 
-    entry = None
-    for which, (shape, cout) in K3_SHAPES.items():
+    shape, cout, level, slope, res_scale, requant, values = K3_SHAPES[which]
+    g = np.random.default_rng(len(which))
+    b, h, w, cin = shape
+    x8 = torch.from_numpy(g.integers(-127, 128, shape).astype(np.int8)).to(dev)
+    codes = None
+    if level is not None:  # a concat buffer: x8 its prefix (level > 0), the codes a slice
+        buf = torch.full((b, h, w, 5 * cout), -128, dtype=torch.int8, device=dev)
+        if level:
+            buf[..., :cin] = x8
+            x8 = buf[..., :cin]
+        codes = buf[..., level * cout : (level + 1) * cout]
+    w8 = torch.from_numpy(g.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)).to(dev)
+    c_o = torch.from_numpy((g.uniform(0.5, 2.0, cout) / (np.sqrt(9 * cin) * 73.0**2))
+                           .astype(np.float32)).to(dev)
+    bias = torch.from_numpy((g.normal(size=cout) * 0.1).astype(np.float32)).to(dev)
+    qscale = float(g.uniform(2.0, 4.0)) if requant else None
+    epis = {dt: Epilogue(c_o, bias, dt, slope=slope, res_scale=res_scale, qscale=qscale,
+                         values=values) for dt in (torch.float32, torch.bfloat16)}
+    res = {dt: None for dt in epis}
+    if res_scale is not None:
+        r = torch.from_numpy(g.normal(size=(b, h, w, cout)).astype(np.float32)).to(dev)
+        res = {dt: r.to(dt) for dt in epis}
+    return x8, w8, pack_weights(w8, dev), epis, res, codes
+
+
+def phase_kernel_k3(build_logs: dict) -> tuple:
+    """K3 raw and fused at each of K3_SHAPES; returns the raw and the fused
+    JSON entries of level 5."""
+    from xmm_superres_denoise_torch.ops import cuda_build
+    from xmm_superres_denoise_torch.ops.conv_i8 import (
+        _SIGNATURES,
+        conv_i8,
+        conv_i8_reference,
+        route,
+    )
+
+    dev = torch.device("cuda:0")
+    lib = cuda_build.library("conv_i8", _SIGNATURES)
+    entries = {}
+    for which, (shape, cout, level, slope, res_scale, requant, values) in K3_SHAPES.items():
         t0 = time.perf_counter()
-        g = np.random.default_rng(len(which))
-        cin = shape[-1]
-        x8 = torch.from_numpy(g.integers(-127, 128, shape).astype(np.int8)).to("cuda:0")
-        w8 = torch.from_numpy(g.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)).to("cuda:0")
-        packed = pack_weights(w8, "cuda:0")
+        x8, w8, packed, epis, res, codes = _k3_case(which, dev)
+        b, h, w, cin = shape
+        cin_k = packed.kernel.shape[2]
+        path = route(cin)
+        if path != ("wgmma" if lib.conv_i8_wgmma_route(cin_k) else "mma.sync"):
+            raise AssertionError(f"conv_i8 {which}: the wrapper's route {path} is not the kernel's")
+        # raw: the exact int32 sums
         out = conv_i8(x8, packed)
         ref = conv_i8_reference(x8, w8)  # float64 on the card, exact
         err = float((out.long() - ref.long()).abs().max())
         exact = torch.equal(out, ref)
         ms = _time_ms(lambda: conv_i8(x8, packed), iters=20)
         plain_ms = _time_ms(lambda: conv_i8_reference(x8, w8), iters=3, warmup=1)
-        b, h, w, _ = shape
+        # fused, in both epilogue dtypes, against the plain composition
+        same, fused_err = {}, {}
+        for dt, epi in epis.items():
+            want = epi.apply(ref, res[dt])
+            got = conv_i8(x8, packed, epi, residual=res[dt], codes=codes)
+            pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+            same[dt] = all(torch.equal(a, b) for a, b in pairs)
+            fused_err[dt] = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+        epi, r = epis[torch.bfloat16], res[torch.bfloat16]
+        fused = lambda: conv_i8(x8, packed, epi, residual=r, codes=codes)  # noqa: E731
+        fused_ms = _time_ms(fused, iters=20)
+        fused_plain_ms = _time_ms(lambda: epi.apply(conv_i8_reference(x8, w8), r),
+                                  iters=3, warmup=1)
         flops = 2 * b * h * w * 9 * cin * cout
         nbytes = x8.numel() + w8.numel() + 4 * b * h * w * cout
         bound_ms, bound_by = _bound(flops, nbytes, torch.int8)
+        out_esize = (1 if requant else 0) + (2 if values else 0)  # codes, bf16 values
+        fused_bytes = (x8.numel() + w8.numel() + 8 * cout + b * h * w * cout * out_esize
+                       + (2 * b * h * w * cout if res_scale is not None else 0))
+        fused_bound_ms, fused_by = _bound(flops, fused_bytes, torch.int8)
+        kernel = "conv3x3_wgmma_kernel" if path == "wgmma" else "conv3x3_kernel"
         say(
-            f"[kernel] conv_i8 {which} {shape} -> {cout}: exact {exact} (max|diff| {err:.0f}, "
-            f"max|sum| {int(ref.abs().max())}); kernel {ms:.4f} ms, plain (f64 conv) "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} G "
-            f"int8 ops, {nbytes / 1e6:.1f} MB; achieved {flops / (ms * 1e-3) / 1e12:.1f} TOP/s); "
-            f"no PyTorch call computes an s8 convolution ({time.perf_counter() - t0:.2f} s)"
+            f"[kernel] conv_i8 {which} {shape} -> {cout} on the {path} route: raw exact {exact} "
+            f"(max|diff| {err:.0f}, max|sum| {int(ref.abs().max())}), {ms:.4f} ms, "
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TOP/s, {bound_ms / ms:.1%} of its bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} G int8 ops, {nbytes / 1e6:.1f} MB), "
+            f"plain (f64 conv) {plain_ms:.4f} ms; fused (bf16 epilogue"
+            f"{', LeakyReLU ' + str(slope) if slope else ''}"
+            f"{', residual x' + str(res_scale) if res_scale else ''}"
+            f"{', int8 codes into concat group ' + str(level) if requant else ''}"
+            f"{'' if values else ', no values'}) bitwise equal to "
+            f"its plain composition: bf16 {same[torch.bfloat16]}, f32 {same[torch.float32]}; "
+            f"{fused_ms:.4f} ms, {flops / (fused_ms * 1e-3) / 1e12:.1f} TOP/s, "
+            f"{fused_bound_ms / fused_ms:.1%} of its bound {fused_bound_ms:.4f} ms by {fused_by} "
+            f"({fused_bytes / 1e6:.1f} MB), plain composition {fused_plain_ms:.4f} ms; ptxas: "
+            f"{_ptxas_report(build_logs['conv_i8'], kernel)}, {lib.conv_i8_smem_bytes(cin_k)} B of "
+            f"dynamic shared memory per block; no PyTorch call computes an s8 convolution "
+            f"({time.perf_counter() - t0:.2f} s)"
         )
         if not exact:
             raise AssertionError(f"conv_i8 {which} sums are not exact")
-        if entry is None:  # the level-5 shape carries the JSON entry
-            entry = {
-                "name": "conv_i8",
-                "route": "cuda",
-                "source": "xmm_superres_denoise_torch/csrc/conv_i8.cu",
-                "replaces": "xmm_superres_denoise_tpu/ops/int8_forward.py:125",
-                "launches": None,  # filled from the serve-int8 run
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": None,
-            }
-    return entry
+        if not all(same.values()):
+            raise AssertionError(f"conv_i8 {which} fused epilogue differs from its plain version")
+        if which == "level5":
+            common = {"route": "cuda", "source": "xmm_superres_denoise_torch/csrc/conv_i8.cu",
+                      "replaces": "xmm_superres_denoise_tpu/ops/int8_forward.py:125",
+                      "launches": None, "library_ms": None}  # launches: from serve-int8
+            entries["raw"] = {"name": "conv_i8", **common, "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            entries["fused"] = {"name": "conv_i8[fused]", **common,
+                                "max_abs_err": fused_err[torch.bfloat16],
+                                "ms": fused_ms, "plain_ms": fused_plain_ms,
+                                "bound_ms": fused_bound_ms, "bound_by": fused_by}
+    return entries["raw"], entries["fused"]
+
+
+def _k3_forward_ops(b: int, h: int, w: int, blocks: int, group: int) -> int:
+    """int8 operations of K3's 64 convolutions in one int8 SR forward of a
+    batch of b, S2D domain h x w (conv_first over its 4 true channels)."""
+    def conv(hh, ww, cin, cout):
+        return 2 * b * hh * ww * 9 * cin * cout
+
+    return (conv(h, w, 4, group)
+            + 3 * blocks * sum(conv(h, w, k * group, group) for k in range(1, 6))
+            + conv(h, w, group, group)            # trunk_conv
+            + conv(h, w, group, 4 * group)        # upconv
+            + conv(2 * h, 2 * w, group, group))   # HRconv, after d2s
 
 
 def _batched(fwd, x):
@@ -814,6 +917,7 @@ def phase_serve_int8(ctx, tmp: Path) -> dict:
 
 
 LIBRARY_GROUPS = ("cuDNN/cuBLAS convolution or GEMM", "elementwise, copies and the rest")
+K3_GROUPS = ("K3 s8 wgmma level", "K3 s8 mma.sync Tile128 (conv_first)")
 TRACE_TRIES = 3
 
 
@@ -824,12 +928,14 @@ def _profile_group(name: str) -> str:
         return "K2/K1 f32 FFMA level (CUDA cores)"
     if "int8_gemm_kernel" in name:
         return "P int8 GEMM"
+    if "conv3x3_wgmma" in name and "S8" in name:  # before the bf16 level's match
+        return K3_GROUPS[0]
     if "conv3x3_wgmma" in name:
         return "K1/K2 bf16 wgmma level, 16x16 px x 128 ch"
     if "conv3x3_kernel" in name:
         if "Bf16" in name:
             return "K2 bf16 mma.sync level, 16x16 px x 32 ch"
-        return "K3 s8 implicit GEMM"
+        return K3_GROUPS[1]
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass", "sm90")):
         return LIBRARY_GROUPS[0]
@@ -878,9 +984,18 @@ def phase_profile(ctx) -> None:
         span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
         parts = ", ".join(f"{g} {us / 1e3 / SERVE_BATCH:.3f} ms ({n} launches)"
                           for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
+        k3 = ""
+        if "int8" in mode:
+            k3_ms = sum(groups.get(g, (0.0, 0))[0] for g in K3_GROUPS) / 1e3 / SERVE_BATCH
+            cfg = ctx["model_cfg"].model
+            bound = _k3_forward_ops(1, x.shape[1] // 2, x.shape[2] // 2, cfg.residual_blocks,
+                                    4 * cfg.filters) / PEAK_FLOPS[torch.int8] * 1e3
+            k3 = (f"; K3 {k3_ms:.3f} ms/image against the forward's int8 bound {bound:.4f} "
+                  f"ms/image ({bound / k3_ms:.1%})")
         say(
             f"[profile] {mode}: device busy {busy / 1e3 / SERVE_BATCH:.3f} ms/image, idle "
-            f"{1 - busy / span:.1%} of the kernels' span; {parts}; port kernels traced "
+            f"{1 - busy / span:.1%} of the kernels' span; {parts}; elementwise launches per "
+            f"batch {groups.get(LIBRARY_GROUPS[1], (0.0, 0))[1]}{k3}; port kernels traced "
             f"{traced} of {launched} launched, {tries} trace(s) ({time.perf_counter() - t0:.2f} s)"
         )
 
@@ -897,7 +1012,7 @@ def main() -> int:
         kernels = [phase_kernel(torch.float32, build_logs), phase_kernel(torch.bfloat16, build_logs)]
         (s2d_f32, k2_c128_f32), (s2d_bf16, k2_c128) = (phase_kernel_s2d(torch.float32, build_logs),
                                                        phase_kernel_s2d(torch.bfloat16, build_logs))
-        p_entry, k3_entry = phase_kernel_p(), phase_kernel_k3()
+        p_entry, (k3_entry, k3_fused) = phase_kernel_p(), phase_kernel_k3(build_logs)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
             s2d_launches = phase_s2d(ctx)
@@ -910,8 +1025,8 @@ def main() -> int:
         k2_c128["launches"] = s2d_launches["fast bf16"]
         k2_c128_f32["launches"] = s2d_launches["fast f32"]
         p_entry["launches"] = int8_launches["int8_gemm"]
-        k3_entry["launches"] = int8_launches["conv_i8"]
-        kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry]
+        k3_entry["launches"] = k3_fused["launches"] = int8_launches["conv_i8"]
+        kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

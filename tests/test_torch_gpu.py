@@ -20,6 +20,11 @@ with ragged edges. The f32 levels of both blocks run one CUDA-core kernel
 (`csrc/conv3x3_f32.cuh`), 128 or 32 channels per block; its level tests
 cover both widths, ragged edges, and tile counts below and far above the
 resident blocks of its persistent grid.
+
+K3 runs at Cin % 128 == 0 the s8 twin of K1's wgmma level and otherwise
+(conv_first) the mma.sync Tile128, both with the int8 forward's epilogue
+inside: each fused variant must equal, bit for bit, its plain composition
+(the float64 convolution and the torch epilogue) run on the card.
 """
 
 import re
@@ -35,7 +40,8 @@ import torch.nn.functional as F
 
 from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_SR
 from xmm_superres_denoise_torch.ops import cuda_build
-from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8, conv_i8_reference
+from xmm_superres_denoise_torch.ops import conv_i8 as k3
+from xmm_superres_denoise_torch.ops.conv_i8 import Epilogue, conv_i8, conv_i8_reference
 from xmm_superres_denoise_torch.ops.dense_block import (
     dense_block,
     dense_block_reference,
@@ -305,11 +311,9 @@ def test_f32_level_refuses_misaligned_input(cuda):
         cuda_build.check(lib, "dense_block", err, "level 1")
 
 
-@pytest.mark.gpu
-def test_f32_level_is_ffma_only(cuda):
-    # the f32 parity class has no TF32: the built f32 level kernels multiply
-    # with FFMA and hold no tensor-core instruction (HMMA, HGMMA)
-    path, _, _ = cuda_build.build("dense_block")
+def _sass_counts(lib_name, ops):
+    """{kernel: {op: SASS lines}} of a built library, from cuobjdump."""
+    path, _, _ = cuda_build.build(lib_name)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
@@ -318,10 +322,18 @@ def test_f32_level_is_ffma_only(cuda):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"FFMA": 0, "HMMA": 0, "HGMMA": 0}
+            counts[fn] = dict.fromkeys(ops, 0)
         elif fn is not None:
-            for op in counts[fn]:
+            for op in ops:
                 counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
+@pytest.mark.gpu
+def test_f32_level_is_ffma_only(cuda):
+    # the f32 parity class has no TF32: the built f32 level kernels multiply
+    # with FFMA and hold no tensor-core instruction (HMMA, HGMMA)
+    counts = _sass_counts("dense_block", ("FFMA", "HMMA", "HGMMA"))
     f32 = {fn: c for fn, c in counts.items() if "conv3x3_f32_kernel" in fn}
     print(f32)
     assert len(f32) == 2  # the 32- and 128-channel blocks
@@ -409,6 +421,152 @@ def test_conv_i8_is_exact(cuda, b, h, w, cin, cout, prefix):
     out = conv_i8(x8, w8.to(cuda)).cpu()
     assert conv_i8.launches == before + 1
     assert torch.equal(out, conv_i8_reference(full[..., :cin], w8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,cin,cout,width", [
+    (2, 208, 208, 640, 128, 640),  # a dense block's level 5 at the serving shape
+    (1, 13, 21, 128, 128, 128),    # ragged: 2 x 1 tiles, both partial
+    (2, 37, 45, 384, 128, 640),    # a level reading a concat prefix in place
+    (2, 208, 208, 128, 512, 128),  # upconv
+    (1, 416, 416, 128, 128, 128),  # HRconv, one image
+])
+def test_k3_wgmma_route_is_exact(cuda, b, h, w, cin, cout, width):
+    assert k3.route(cin) == "wgmma"
+    g = np.random.default_rng(cin + h)
+    full = _int8((b, h, w, width), g)
+    full[0, :2, :2] = 127
+    w8 = _int8((3, 3, cin, cout), g)
+    w8[..., 0] = 127
+    w8[..., 1] = -127
+    x8 = full.to(cuda)[..., :cin]
+    before = conv_i8.launches
+    out = conv_i8(x8, w8.to(cuda))
+    ref = conv_i8_reference(x8, w8.to(cuda))
+    torch.cuda.synchronize()
+    assert conv_i8.launches == before + 1
+    print(f"K3 wgmma {(b, h, w, cin)} -> {cout}: max|sum| {ref.abs().max().item()}")
+    assert torch.equal(out, ref)
+
+
+# name: (cin, cout, concat level whose codes it writes or None, slope,
+# res_scale, requantise, values beside the codes)
+K3_VARIANTS = {
+    "level1": (128, 128, 1, 0.2, None, True, False),
+    "level2": (256, 128, 2, 0.2, None, True, False),
+    "level3": (384, 128, 3, 0.2, None, True, False),
+    "level4": (512, 128, 4, 0.2, None, True, False),
+    "level5": (640, 128, None, None, 0.2, False, True),
+    "conv_first": (4, 128, None, None, None, False, True),
+    "trunk_conv": (128, 128, None, None, 1.0, False, True),
+    "upconv": (128, 512, None, 0.01, None, False, True),
+    "hrconv": (128, 128, None, 0.2, None, False, True),
+    # values, and beside them the codes of the next block's (or upconv's)
+    # input, into the first group of a fresh concat
+    "level5+codes": (640, 128, 0, None, 0.2, True, True),
+    "conv_first+codes": (4, 128, 0, None, None, True, True),
+    "trunk_conv+codes": (128, 128, 0, None, 1.0, True, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(K3_VARIANTS))
+def test_k3_fused_epilogue_equals_plain_version(cuda, name, dtype):
+    # codes go into a concat slice filled with -128 (never a code): levels
+    # 1-4 into the next slice of the buffer they read, the "+codes" variants
+    # into the first group of another; values go into a NaN-filled output,
+    # so an unwritten element shows; the plain version runs on the card too
+    cin, cout, level, slope, res_scale, requant, values = K3_VARIANTS[name]
+    b, h, w = 2, 37, 45
+    g = np.random.default_rng(sum(map(ord, name)))
+    in_concat = level is not None and level > 0
+    buf = torch.full((b, h, w, 640 if in_concat else cin), -128, dtype=torch.int8)
+    buf[..., :cin] = _int8((b, h, w, cin), g)
+    buf = buf.to(cuda)
+    x8 = buf[..., :cin]
+    cat = buf if in_concat else torch.full((b, h, w, 640), -128, dtype=torch.int8, device=cuda)
+    w8 = _int8((3, 3, cin, cout), g).to(cuda)
+    c_o = torch.from_numpy((g.uniform(0.5, 2.0, cout) / (np.sqrt(9 * cin) * 73.0**2))
+                           .astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((g.normal(size=cout) * 0.1).astype(np.float32)).to(cuda)
+    residual = None
+    if res_scale is not None:
+        residual = torch.from_numpy(g.normal(size=(b, h, w, cout)).astype(np.float32)).to(cuda, dtype)
+    epi = Epilogue(c_o, bias, dtype, slope=slope, res_scale=res_scale,
+                   qscale=float(g.uniform(2.0, 4.0)) if requant else None, values=values)
+    want = epi.apply(conv_i8_reference(x8, w8), residual)
+    want = want if isinstance(want, tuple) else (want,)
+    out = torch.full((b, h, w, cout), float("nan"), dtype=dtype, device=cuda) if values else None
+    codes = cat[..., level * 128 : (level + 1) * 128] if requant else None
+    rest = torch.cat([cat[..., : level * 128], cat[..., (level + 1) * 128 :]], -1).clone() \
+        if requant else None
+    before = conv_i8.launches
+    got = conv_i8(x8, w8, epi, residual=residual, out=out, codes=codes)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    assert conv_i8.launches == before + 1
+    assert [t.data_ptr() for t in got] == [t.data_ptr() for t in (out, codes) if t is not None]
+    if requant:  # the channels around the written slice keep what they held
+        assert torch.equal(torch.cat([cat[..., : level * 128], cat[..., (level + 1) * 128 :]], -1),
+                           rest)
+        assert bool((cat[..., (level + 1) * 128 :] == -128).all())
+    for a, b_ in zip(got, want):
+        diff = (a.float() - b_.float()).abs().max().item()
+        print(f"K3 {k3.route(cin)} {name} {dtype} {a.dtype}: max|fused - plain| {diff}")
+        assert a.dtype == b_.dtype and torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_k3_refuses_misaligned_or_ill_strided_output(cuda):
+    g = np.random.default_rng(5)
+    buf = _int8((1, 16, 16, 640), g).to(cuda)
+    w8 = k3.pack_weights(_int8((3, 3, 128, 128), g), cuda)
+    codes = Epilogue(torch.ones(128, device=cuda), torch.zeros(128, device=cuda), torch.bfloat16,
+                     slope=0.2, qscale=3.0)
+    values = Epilogue(torch.ones(128, device=cuda), torch.zeros(128, device=cuda), torch.float32,
+                      res_scale=0.2)
+    res = torch.zeros(1, 16, 16, 128, device=cuda)
+    before = conv_i8.launches
+    with pytest.raises(ValueError, match="cannot take this codes output"):  # odd base
+        conv_i8(buf[..., :128], w8, codes, codes=buf[..., 129:257])
+    with pytest.raises(ValueError, match="cannot take this codes output"):  # uneven pixels
+        conv_i8(buf[..., :128], w8, codes, codes=buf[:, :, :, 128:256].transpose(1, 2))
+    with pytest.raises(ValueError, match="overlaps"):
+        conv_i8(buf[..., :128], w8, codes, codes=buf[..., 64:192])
+    flat = torch.empty(16 * 16 * 128 + 1, device=cuda)
+    with pytest.raises(ValueError, match="8-byte boundary"):  # f32 pair off its boundary
+        conv_i8(buf[..., :128], w8, values, residual=res, out=flat[1:].view(1, 16, 16, 128))
+    with pytest.raises(ValueError, match="residual"):
+        conv_i8(buf[..., :128], w8, values, residual=flat[1:].view(1, 16, 16, 128))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.empty(w8.kernel.numel() + 1, dtype=torch.int8, device=cuda)[1:]
+        conv_i8(buf[..., :128], w8._replace(kernel=shifted.view(w8.kernel.shape)), codes,
+                codes=buf[..., 128:256])
+    assert conv_i8.launches == before
+    conv_i8(buf[..., :128], w8, codes, codes=buf[..., 128:256])  # what they are refused for
+    torch.cuda.synchronize()
+    assert conv_i8.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_k3_s8_level_is_warpgroup_mma(cuda):
+    # the s8 level runs wgmma (IGMMA in the SASS), and only conv_first's
+    # Tile128 keeps mma.sync (IMMA); the bf16 wgmma level keeps its 72 HGMMA
+    ops = ("IGMMA", "HGMMA", "IMMA", "HMMA")
+    k3_counts = _sass_counts("conv_i8", ops)
+    print(k3_counts)
+    wg = {fn: c for fn, c in k3_counts.items() if "conv3x3_wgmma_kernel" in fn}
+    tile = {fn: c for fn, c in k3_counts.items() if "conv3x3_kernel" in fn}
+    assert len(wg) == 1 and len(tile) == 1
+    for c in wg.values():
+        assert c["IGMMA"] > 0 and c["IMMA"] == c["HGMMA"] == c["HMMA"] == 0, c
+    for c in tile.values():
+        assert c["IMMA"] > 0 and c["IGMMA"] == 0, c
+    bf16 = {fn: c for fn, c in _sass_counts("dense_block_s2d", ops).items()
+            if "conv3x3_wgmma_kernel" in fn}
+    print(bf16)
+    assert [c["HGMMA"] for c in bf16.values()] == [72]
 
 
 @pytest.mark.gpu

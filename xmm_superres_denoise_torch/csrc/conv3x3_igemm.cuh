@@ -7,8 +7,9 @@
 // output channels; its warps are TH / 2 along M (two tile rows each, one
 // m16 tile per row) by BN / WARP_N along N, each a mma_tile warp tile of
 // 32 x WARP_N. The tile shape is a template parameter (`Tile` below):
-//   Tile128: TH = 8,  BN = 128, 8 warps of 32 x 64 (K3; the bf16 level at
-//            C % 128 == 0 runs conv3x3_wgmma.cuh instead)
+//   Tile128: TH = 8,  BN = 128, 8 warps of 32 x 64 (K3 at cin % 128 != 0,
+//            i.e. conv_first; K3 and the bf16 level at 128-channel
+//            multiples run conv3x3_wgmma.cuh instead)
 //   Tile32:  TH = 16, BN = 32,  8 warps of 32 x 32 (K2 bf16 at C % 128 != 0)
 // K is walked in chunks of CHUNK bytes of input channels: for each chunk the
 // block stages

@@ -1,8 +1,17 @@
-// The bf16 dense-block level at C % 128 == 0 for Hopper (sm_90a): a SAME
-// 3x3 convolution over the concat prefix as an implicit GEMM on wgmma, fed
-// by TMA. K1 (dense_block_s2d.cu) and K2 at C % 128 == 0 (dense_block.cu,
-// the fast bf16 forward) reach it through dense_level_bf16.cuh, which owns
-// the epilogue.
+// A SAME 3x3 convolution over a channel prefix of an NHWC buffer as an
+// implicit GEMM on wgmma, fed by TMA, for Hopper (sm_90a), in two element
+// types (the template parameter Op):
+// * Bf16: the bf16 dense-block level at C % 128 == 0. K1
+//   (dense_block_s2d.cu) and K2 at C % 128 == 0 (dense_block.cu, the fast
+//   bf16 forward) reach it through dense_level_bf16.cuh, which owns the
+//   epilogue. The notes below are written for this one.
+// * S8: K3's s8 x s8 -> s32 level at cin % 128 == 0 (conv_i8.cu, which
+//   owns the int8 forward's epilogue), wgmma.mma_async.m64n128k32.s32.s8.s8.
+//   In bytes the two are the same kernel: a chunk is 128 bytes of input
+//   channels (64 bf16 or 128 s8, one swizzle row), a k-step 32 bytes (k16
+//   bf16, k32 s8), and the A fragments that ldmatrix loads hold the same
+//   bytes per register in both; only the instruction, the accumulator type
+//   and the TMA element type differ.
 //
 // Replaces: ops/pallas_dense_block.py::dense_block_s2d_pallas of the JAX
 // package (body _make_kernel), per level: the (M, k*128) x (k*128, 128)
@@ -61,6 +70,7 @@
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "tma.cuh"
 
@@ -71,10 +81,10 @@ using namespace tma;
 constexpr int TH = 16, TW = 16;  // output tile rows x columns (M = 256)
 constexpr int HALO_H = TH + 2, HALO_W = TW + 2;
 constexpr int BN = 128;          // output channels per block (N)
-constexpr int KC = 64;           // input channels per chunk: 128 bytes, one swizzle row
+constexpr int CHUNK = 128;       // bytes of input channels per chunk: one swizzle row
 constexpr int STAGES = 6;        // depth of the weight ring
-constexpr int W_STAGE = BN * KC * 2;                            // 16,384 B
-constexpr int HALO_BYTES = HALO_H * HALO_W * KC * 2;            // 41,472 B
+constexpr int W_STAGE = BN * CHUNK;                             // 16,384 B
+constexpr int HALO_BYTES = HALO_H * HALO_W * CHUNK;             // 41,472 B
 constexpr int HALO_SLOT = (HALO_BYTES + 1023) / 1024 * 1024;    // 41,984 B
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);
@@ -94,6 +104,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
 // compiler before the wgmma.wait_group that covers it.
 __device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 __device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void keep(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -141,8 +152,66 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// The A fragments of one k16 step for the thread's two m64 blocks: tap `tap`
-// of the halo at `halo`, 16-channel step `kk` of the chunk. prow[mb] is the
+// d (64 rows x 128 s32, this thread's 64) += a (64 x 32 s8 in registers,
+// this warp's 16 rows) * B (32 x 128 s8 through `desc`). Integer wgmma
+// takes no scale or transpose immediates; both operands are K-major.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The element types of the level: the accumulator, the TMA element type
+// and its size, the input channels of one 128-byte chunk, and one k-step
+// (32 bytes of K) of wgmma.
+struct Bf16 {
+  using Acc = float;
+  static constexpr int ELEM = 2;
+  static constexpr int KC = CHUNK / ELEM;  // 64 channels per chunk
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ void mma(Acc (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+    wgmma_m64n128k16(d, a, desc);
+  }
+};
+
+struct S8 {
+  using Acc = int;
+  static constexpr int ELEM = 1;
+  static constexpr int KC = CHUNK / ELEM;  // 128 channels per chunk
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static __device__ __forceinline__ void mma(Acc (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+    wgmma_m64n128k32_s8(d, a, desc);
+  }
+};
+
+// An epilogue that sets `kFragment` takes the thread's whole accumulator at
+// once, epi.fragment(acc, b * H, H, W, y, x, n): acc[mb][4j + 2*half + e] is
+// output pixel (y + 4*mb, x + 8*half), channel n + 8j + e. Any other
+// epilogue is called once per pair (the kernel note below).
+template <class E, class = void>
+struct TakesFragment : std::false_type {};
+template <class E>
+struct TakesFragment<E, std::void_t<decltype(E::kFragment)>> : std::bool_constant<E::kFragment> {};
+
+// The A fragments of one k-step for the thread's two m64 blocks: tap `tap`
+// of the halo at `halo`, 32-byte step `kk` of the chunk. prow[mb] is the
 // halo pixel of this lane's ldmatrix row at tap (0, 0), khalf which 16-byte
 // half of the step it addresses.
 __device__ __forceinline__ void load_a(uint32_t (&a)[2][4], uint32_t halo, const int (&prow)[2],
@@ -155,12 +224,12 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[2][4], uint32_t halo, const
   }
 }
 
-// in_map: the (B, H, W, cin) prefix of the bf16 concat buffer, box
-// (64, 18, 18, 1); w_map: the packed (9, cout, cin) bf16 weights, box
-// (64, 128, 1); both with the 128-byte swizzle. For every output pixel
+// in_map: the (B, H, W, cin) prefix of the concat buffer, box
+// (Op::KC, 18, 18, 1); w_map: the packed (9, cout, cin) weights, box
+// (Op::KC, 128, 1); both with the 128-byte swizzle. For every output pixel
 // `pix` (flat index b*H*W + y*W + x) and even output channel n, the
 // epilogue gets epi(pix, n, acc[n], acc[n + 1]).
-template <class Epi>
+template <class Op, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap in_map,
                      const __grid_constant__ CUtensorMap w_map, int H, int W, int chunks,
@@ -203,11 +272,11 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap in_map,
         const int h = c & 1;
         if (c >= 2) mbar_wait(h_empty(h), ((c >> 1) - 1) & 1);
         mbar_expect_tx(h_full(h), HALO_BYTES);
-        tma_load_4d(halo0 + h * HALO_SLOT, &in_map, h_full(h), c * KC, x0 - 1, y0 - 1, b);
+        tma_load_4d(halo0 + h * HALO_SLOT, &in_map, h_full(h), c * Op::KC, x0 - 1, y0 - 1, b);
         for (int tap = 0; tap < 9; ++tap) {
           mbar_wait(w_empty(s), ph ^ 1);
           mbar_expect_tx(w_full(s), W_STAGE);
-          tma_load_3d(w_ring + s * W_STAGE, &w_map, w_full(s), c * KC, n0, tap);
+          tma_load_3d(w_ring + s * W_STAGE, &w_map, w_full(s), c * Op::KC, n0, tap);
           if (++s == STAGES) {
             s = 0;
             ph ^= 1;
@@ -226,11 +295,11 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap in_map,
     for (int mb = 0; mb < 2; ++mb)
       prow[mb] = (wg * 8 + mb * 4 + warp) * HALO_W + (lane & 7) + (lane & 8);
 
-    float acc[2][64];
+    typename Op::Acc acc[2][64];
 #pragma unroll
     for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[mb][i] = 0.f;
+      for (int i = 0; i < 64; ++i) acc[mb][i] = 0;
     uint32_t a[2][2][4] = {};  // [k-step parity][m block][register]
 
     int s = 0, prev = 0;
@@ -250,8 +319,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap in_map,
 #pragma unroll
             for (int i = 0; i < 64; ++i) keep(acc[mb][i]);
           wgmma_fence();
-          wgmma_m64n128k16(acc[0], a[kk & 1][0], desc + 2 * kk);
-          wgmma_m64n128k16(acc[1], a[kk & 1][1], desc + 2 * kk);
+          Op::mma(acc[0], a[kk & 1][0], desc + 2 * kk);
+          Op::mma(acc[1], a[kk & 1][1], desc + 2 * kk);
           wgmma_commit();
           // the previous step's group is done: its A registers are free, and
           // at a slice's first step the previous slice (and, at tap 0, the
@@ -291,63 +360,67 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap in_map,
     // d[4j + 2*half + e]: row lane/4 + 8*half of the warp's 16, column
     // 8j + 2*(lane%4) + e
     const int g = lane >> 2, t = lane & 3;
+    if constexpr (TakesFragment<Epi>::value) {
+      epi.fragment(acc, (size_t)b * H, H, W, y0 + wg * 8 + warp, x0 + g, n0 + 2 * t);
+    } else {
 #pragma unroll
-    for (int mb = 0; mb < 2; ++mb) {
-      const int y = y0 + wg * 8 + mb * 4 + warp;
-      if (y >= H) continue;
+      for (int mb = 0; mb < 2; ++mb) {
+        const int y = y0 + wg * 8 + mb * 4 + warp;
+        if (y >= H) continue;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int x = x0 + g + 8 * half;
-        if (x >= W) continue;
-        const size_t pix = ((size_t)b * H + y) * W + x;
+        for (int half = 0; half < 2; ++half) {
+          const int x = x0 + g + 8 * half;
+          if (x >= W) continue;
+          const size_t pix = ((size_t)b * H + y) * W + x;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          epi(pix, n0 + 8 * j + 2 * t, acc[mb][4 * j + 2 * half], acc[mb][4 * j + 2 * half + 1]);
+          for (int j = 0; j < 16; ++j)
+            epi(pix, n0 + 8 * j + 2 * t, acc[mb][4 * j + 2 * half], acc[mb][4 * j + 2 * half + 1]);
+        }
       }
     }
   }
 }
 
-// buf: NHWC bf16, buf_stride elements between pixels, read over channels
-// [0, cin); w: packed (9, cout, cin) bf16. Needs cin % 64 == 0, cout % 128
-// == 0, and what TMA needs: 16-byte-aligned base addresses and strides
-// (the Python wrappers check these and raise; here they return
-// cudaErrorInvalidValue / cudaErrorMisalignedAddress). Launches on `stream`
-// and returns the cudaError_t of the launch.
-template <class Epi>
+// buf: NHWC of Op's element type, buf_stride elements between pixels, read
+// over channels [0, cin); w: packed (9, cout, cin) of the same type. Needs
+// cin % Op::KC == 0, cout % 128 == 0, and what TMA needs: 16-byte-aligned
+// base addresses and strides (the Python wrappers check these and raise;
+// here they return cudaErrorInvalidValue / cudaErrorMisalignedAddress).
+// Launches on `stream` and returns the cudaError_t of the launch.
+template <class Op, class Epi>
 int launch(const void* buf, int B, int H, int W, int buf_stride, int cin, const void* w,
            int cout, Epi epi, cudaStream_t stream) {
-  if (cin % KC || cout % BN || cin > buf_stride) return static_cast<int>(cudaErrorInvalidValue);
+  if (cin % Op::KC || cout % BN || cin > buf_stride) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(buf) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
-      (buf_stride * 2) % 16)
+      (buf_stride * Op::ELEM) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const cuuint64_t px = static_cast<cuuint64_t>(buf_stride) * 2;  // bytes per pixel
+  const cuuint64_t px = static_cast<cuuint64_t>(buf_stride) * Op::ELEM;  // bytes per pixel
   const cuuint64_t in_dims[4] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(W),
                                  static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t in_strides[3] = {px, px * W, px * W * H};
-  const cuuint32_t in_box[4] = {KC, HALO_W, HALO_H, 1};
+  const cuuint32_t in_box[4] = {Op::KC, HALO_W, HALO_H, 1};
   CUtensorMap in_map, w_map;
-  if (encode(&in_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(buf), in_dims,
+  if (encode(&in_map, Op::TMA_TYPE, 4, const_cast<void*>(buf), in_dims,
              in_strides, in_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(cout), 9};
-  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(cin) * 2,
-                                   static_cast<cuuint64_t>(cin) * 2 * cout};
-  const cuuint32_t w_box[3] = {KC, BN, 1};
-  if (encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), w_dims, w_strides,
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(cin) * Op::ELEM,
+                                   static_cast<cuuint64_t>(cin) * Op::ELEM * cout};
+  const cuuint32_t w_box[3] = {Op::KC, BN, 1};
+  if (encode(&w_map, Op::TMA_TYPE, 3, const_cast<void*>(w), w_dims, w_strides,
              w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
 
-  auto kernel = conv3x3_wgmma_kernel<Epi>;
+  auto kernel = conv3x3_wgmma_kernel<Op, Epi>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * (cout / BN));
-  kernel<<<grid, THREADS, SMEM, stream>>>(in_map, w_map, H, W, cin / KC, cout / BN, epi);
+  kernel<<<grid, THREADS, SMEM, stream>>>(in_map, w_map, H, W, cin / Op::KC, cout / BN, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

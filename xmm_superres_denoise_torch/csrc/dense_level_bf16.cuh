@@ -63,7 +63,8 @@ inline int launch(const void* buf, int B, int H, int W, int buf_stride, int cin,
                      static_cast<const __nv_bfloat16*>(buf), buf_stride,
                      static_cast<__nv_bfloat16*>(dst), dst_stride, residual};
   if (C % 128 == 0)
-    return conv3x3_wgmma::launch(buf, B, H, W, buf_stride, cin, w, C, epi, stream);
+    return conv3x3_wgmma::launch<conv3x3_wgmma::Bf16>(buf, B, H, W, buf_stride, cin, w, C, epi,
+                                                      stream);
   return igemm::launch<mma_tile::Bf16, 64, igemm::Tile32>(buf, B, H, W, buf_stride * 2,
                                                           cin * 2, w, C, epi, stream);
 }

@@ -6,11 +6,17 @@ calibrated w8a8 variant of `ops/s2d_forward.py`.
 * weights: symmetric per-output-channel int8;
 * activations: symmetric per-tensor int8, with scales baked from a
   calibration batch run through the f32 S2D graph (max-abs, 8 % headroom);
-* every int8 convolution runs on K3 (`ops/conv_i8.py`: the CUDA kernel on
-  the card, the exact float64 plain version on the CPU); dequantisation,
-  bias, LeakyReLU and requantisation are torch elementwise epilogues, as the
-  JAX package leaves them to XLA, with the scalars rounded to the epilogue
-  dtype as JAX rounds them (`ops/precision.py: scalar_like`);
+* every int8 convolution runs on K3 (`ops/conv_i8.py`) with its epilogue
+  (dequantisation, bias, LeakyReLU, the dense block's and trunk's
+  residuals, requantisation) inside the kernel on the card, where XLA fuses
+  it into the convolution in the JAX package: dense levels 1-4 write their
+  int8 codes straight into the next level's slice of the int8 concat, and
+  conv_first, level 5 of a dense block followed by another in its RRDB, and
+  trunk_conv (before an int8 upconv) write the codes of their output beside
+  it, as the next convolution's input. On the CPU each convolution is its
+  plain version, the exact float64 convolution and the same epilogue as
+  torch ops requantising through `_quantize`, with the scalars rounded to
+  the epilogue dtype as JAX rounds them (`ops/precision.py: scalar_like`);
 * the dense-block concat mixes levels with different activation scales;
   each input group's scale is folded into that group's weight scale so the
   int32 sum dequantises with one per-output-channel factor:
@@ -37,7 +43,7 @@ import torch
 
 from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR, conv3x3_nhwc
 from ..utils.weights import flax_tree, params_from_flax
-from .conv_i8 import conv_i8, pack_weights
+from .conv_i8 import Epilogue, conv_i8, pack_weights, quantize_i8
 from .int8_gemm import check_int8_exact
 from .precision import lrelu, scalar_like, true_f32
 from .s2d_forward import _conv_ready, _maybe_true_f32, _transform_trunk, _xform
@@ -165,34 +171,45 @@ def _quant_weights_grouped(w: np.ndarray, group_scales: Sequence[float], group_s
 
 def _quantize(x: Tensor, scale: float) -> Tensor:
     """-> int8 with a per-tensor symmetric scale (x ~ x8 * scale / 127):
-    round half to even (as `jnp.round`), clip to +-127."""
-    xf = x.float()
-    q = torch.round(xf * scalar_like(xf, 127.0 / scale))
-    return torch.clamp(q, -127, 127).to(torch.int8)
+    round half to even (as `jnp.round`), clip to +-127. Every torch
+    requantisation of the forward goes through this name (K3's epilogue does
+    the same on the card)."""
+    return quantize_i8(x, scale)
 
 
 # --------------------------------------------------------------------------
 # forward builder
 # --------------------------------------------------------------------------
 
+def _requantize(x: Tensor, scale: float) -> Tensor:
+    """The plain epilogues' requantiser: `_quantize`, looked up when called."""
+    return _quantize(x, scale)
+
+
 class _QConv:
-    """One quantised convolution: packed int8 weights (whole, and per input
-    group for the concat-free form), c_o and bias in f32 on the device."""
+    """One quantised convolution with its epilogue: packed int8 weights
+    (whole, and per input group for the concat-free form) and the
+    `Epilogue` (c_o and bias in f32 on the device, the output dtype, and the
+    optional LeakyReLU slope, residual scale and requantisation scale; with
+    `values`, the codes are written beside the values)."""
 
     def __init__(self, w: np.ndarray, b: Tensor, scales: Sequence[float], group: int,
-                 device, split: bool = False):
+                 device, dtype, slope: Optional[float] = None,
+                 res_scale: Optional[float] = None, qscale: Optional[float] = None,
+                 values: bool = False, split: bool = False):
         w8, c_o = _quant_weights_grouped(w, scales, group)
         self.packed = pack_weights(w8, device)
         self.groups = [pack_weights(np.ascontiguousarray(w8[:, :, j * group : (j + 1) * group]),
                                     device) for j in range(len(scales))] if split else []
-        self.c_o = torch.from_numpy(c_o).to(device)
-        self.b = b.to(device, torch.float32)
+        self.epi = Epilogue(torch.from_numpy(c_o).to(device), b.to(device, torch.float32), dtype,
+                            slope=slope, res_scale=res_scale, qscale=qscale, values=values,
+                            quantize=_requantize)
 
-    def dequant(self, y32: Tensor, dtype) -> Tensor:
-        return (y32.float() * self.c_o + self.b).to(dtype)
-
-    def __call__(self, x8: Tensor, dtype) -> Tensor:
-        return self.dequant(conv_i8(x8, self.packed), dtype)
+    def __call__(self, x8: Tensor, residual: Optional[Tensor] = None,
+                 out: Optional[Tensor] = None, codes: Optional[Tensor] = None):
+        """The convolution and its epilogue (`conv_i8`): one K3 launch on a
+        card, the plain version on the CPU."""
+        return conv_i8(x8, self.packed, self.epi, residual=residual, out=out, codes=codes)
 
 
 def make_int8_s2d_forward(
@@ -231,66 +248,97 @@ def make_int8_s2d_forward(
 
     tp32 = _transform_trunk(p["trunk"], n_blocks, torch.float32)
     gsz = model.num_filters * 4  # S2D group width (128 at esr_gen width)
-    w_first, b_first = tp32["conv_first"]
-    q_first = _QConv(w_first.numpy(), b_first, [scales["conv_first"]], w_first.shape[2], device)
-    q_tconv = _QConv(tp32["trunk_conv"][0].numpy(), tp32["trunk_conv"][1],
-                     [scales["trunk_conv"]], gsz, device)
+    quant_head = is_sr and "__hrconv_in__" in scales
     sb = [[[[scales[f"b{bi}d{di}l{level}j{j}"] for j in range(level + 1)]
             for level in range(5)] for di in range(3)] for bi in range(n_blocks)]
-    q_blocks = [[[_QConv(w.numpy(), b, sb[bi][di][level], gsz, device, split=concat_free)
+    w_first, b_first = tp32["conv_first"]
+    # conv_first: fea, and its codes as the first dense block's input
+    q_first = _QConv(w_first.numpy(), b_first, [scales["conv_first"]], w_first.shape[2], device,
+                     dtype, qscale=sb[0][0][0][0], values=True)
+    # trunk_conv: fea + trunk, and with an int8 head its codes as upconv's input
+    q_tconv = _QConv(tp32["trunk_conv"][0].numpy(), tp32["trunk_conv"][1],
+                     [scales["trunk_conv"]], gsz, device, dtype, res_scale=1.0,
+                     qscale=scales["__trunk_out__"] if quant_head else None, values=True)
+
+    def _level(bi, di, level):
+        """levels 1-4: LeakyReLU(0.2), then the codes of the next level's
+        input; level 5: 0.2 * y + x0, and when another dense block of the
+        RRDB follows, its codes as that block's input."""
+        if level < 4:
+            return dict(slope=0.2, qscale=sb[bi][di][level + 1][level + 1])
+        return dict(res_scale=0.2, qscale=sb[bi][di + 1][0][0] if di < 2 else None, values=True)
+
+    q_blocks = [[[_QConv(w.numpy(), b, sb[bi][di][level], gsz, device, dtype,
+                         split=concat_free, **_level(bi, di, level))
                   for level, (w, b) in enumerate(tp32["blocks"][bi][di])]
                  for di in range(3)] for bi in range(n_blocks)]
 
-    quant_head = is_sr and "__hrconv_in__" in scales
     if quant_head:
         w_up, b_up = _xform(p["upconv_0"], 1, torch.float32)
-        q_up = _QConv(w_up.numpy(), b_up, [scales["__trunk_out__"]], w_up.shape[2], device)
+        q_up = _QConv(w_up.numpy(), b_up, [scales["__trunk_out__"]], w_up.shape[2], device,
+                      dtype, slope=0.01)
         w_hr, b_hr = _xform(p["HRconv"], 1, torch.float32)
-        q_hr = _QConv(w_hr.numpy(), b_hr, [scales["__hrconv_in__"]], w_hr.shape[2], device)
+        q_hr = _QConv(w_hr.numpy(), b_hr, [scales["__hrconv_in__"]], w_hr.shape[2], device,
+                      dtype, slope=0.2)
     elif is_sr:
         upconv = _conv_ready(_xform(p["upconv_0"], 1, dtype, device))
         hrconv = _conv_ready(_xform(p["HRconv"], 1, dtype, device))
     conv_last = _conv_ready(_xform(p["conv_last"], 1, dtype, device))
 
-    def dense_block_i8(t: Tensor, qb, s) -> Tensor:
-        x0 = t
-        b, h, w, _ = x0.shape
+    def concat8(t: Tensor) -> Tensor:
+        """A dense block's int8 concat, filled level by level and read in place."""
+        b, h, w, _ = t.shape
+        return torch.empty((b, h, w, 5 * gsz), dtype=torch.int8, device=t.device)
+
+    def with_codes(q: _QConv, x8: Tensor, t: Tensor, **kw):
+        """Run q, whose epilogue writes its values and the codes of the next
+        dense block's input (t's shape): (values, that block's x8)."""
         if concat_free:
-            feats8 = [_quantize(x0, s[0][0])]
-        else:  # the int8 concat, filled level by level and read in place
-            cat8 = torch.empty((b, h, w, 5 * gsz), dtype=torch.int8, device=x0.device)
-            cat8[..., :gsz] = _quantize(x0, s[0][0])
-        for level in range(5):
-            q = qb[level]
-            if concat_free:
+            return q(x8, **kw)
+        nxt = concat8(t)
+        return q(x8, codes=nxt[..., :gsz], **kw)[0], nxt
+
+    def dense_block_i8(x0: Tensor, x8: Tensor, qb):
+        """One dense block on x0, whose codes `x8` holds (concat-free: the
+        codes; else the concat, with the codes in its first group). Returns
+        (output, the next dense block's x8, or None at the end of the RRDB)."""
+        last = qb[4].epi.qscale is None
+        if concat_free:  # raw sums per group, then the epilogue as torch ops
+            feats8 = [x8]
+            for level, q in enumerate(qb):
                 y32 = conv_i8(feats8[0], q.groups[0])
                 for j in range(1, level + 1):
                     y32 = y32 + conv_i8(feats8[j], q.groups[j])
-                y = q.dequant(y32, dtype)
-            else:
-                y = q(cat8[..., : (level + 1) * gsz], dtype)
-            if level < 4:
-                x8 = _quantize(lrelu(y, 0.2), s[level + 1][level + 1])
-                if concat_free:
-                    feats8.append(x8)
-                else:
-                    cat8[..., (level + 1) * gsz : (level + 2) * gsz] = x8
-        return y * scalar_like(y, 0.2) + x0
+                feats8.append(q.epi.apply(y32, x0 if level == 4 else None))
+            return (feats8[-1], None) if last else feats8[-1]
+        for level in range(4):  # levels 1-4 write the next level's codes into the concat
+            qb[level](x8[..., : (level + 1) * gsz],
+                      codes=x8[..., (level + 1) * gsz : (level + 2) * gsz])
+        if last:
+            return qb[4](x8, residual=x0), None
+        return with_codes(qb[4], x8, x0, residual=x0)
 
     def forward(x: Tensor) -> Tensor:
         x4 = s2d(x.to(dtype))
-        fea = q_first(_quantize(x4, scales["conv_first"]), dtype)
+        fea, x8 = with_codes(q_first, _quantize(x4, scales["conv_first"]), x4)
         t = fea
         for bi in range(n_blocks):
             block_in = t
             for di in range(3):
-                t = dense_block_i8(t, q_blocks[bi][di], sb[bi][di])
+                t, x8 = dense_block_i8(t, x8, q_blocks[bi][di])
             t = t * scalar_like(t, 0.2) + block_in
-        fea = fea + q_tconv(_quantize(t, scales["trunk_conv"]), dtype)
+            if bi + 1 < n_blocks:  # the next RRDB's input
+                x8 = _quantize(t, sb[bi + 1][0][0][0])
+                if not concat_free:
+                    cat8 = concat8(t)
+                    cat8[..., :gsz] = x8
+                    x8 = cat8
+        fea = q_tconv(_quantize(t, scales["trunk_conv"]), residual=fea)
         if is_sr:
             if quant_head:
-                up = lrelu(q_up(_quantize(fea, scales["__trunk_out__"]), dtype), 0.01)
-                h = lrelu(q_hr(_quantize(d2s(up), scales["__hrconv_in__"]), dtype), 0.2)
+                fea, fea8 = fea
+                up = q_up(fea8)
+                h = q_hr(_quantize(d2s(up), scales["__hrconv_in__"]))
             else:
                 up = lrelu(conv3x3_nhwc(fea, *upconv), 0.01)
                 h = lrelu(conv3x3_nhwc(d2s(up), *hrconv), 0.2)
