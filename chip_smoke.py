@@ -40,7 +40,23 @@ Phases, each printing its result and its seconds:
 6. serve-int8: the same 4 files served through `InferenceEngine(quantize=
    True)` in bf16 (int8 convolutions on K3, P's exactness check at build),
    held to the 40 dB int8 gate against the f32 plain forward;
-7. profile: one warm batch of each serving mode (model f32 and bf16, S2D
+7. cli: the command line (`xmm_superres_denoise_torch.cli`) serving the
+   same 4 files with the run config and the trained checkpoint: `serve
+   --bf16` in-process, bitwise equal to [serve]'s bf16 products; `serve
+   --int8 --bf16 --int8_scales` twice with one fresh scales path, the first
+   run calibrating and writing {"fingerprint", "scales"}, the second loading
+   it without calibrating (calls of calibrate_int8_scales counted), both
+   bitwise equal to [serve-int8]'s products and at the 40 dB gate; and one
+   `python -m ... infer --bf16` subprocess, bitwise equal to `infer_file`
+   in-process;
+8. http: `run_http_server` on 127.0.0.1 (a free port) in a thread over the
+   bf16 engine: each file POSTed, each response bitwise equal to
+   `infer_file`'s prediction, then /stats, then the stop event;
+9. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
+   sqrt table) on a seeded (8, 832, 832, 1) pair, value and d loss / d preds
+   on the card (TF32 off) against float64 on the CPU, and the warm
+   forward+backward time;
+10. profile: one warm batch of each serving mode (model f32 and bf16, S2D
    f32 and bf16, fast f32 and bf16, int8) traced with torch.profiler:
    device-busy time per image, idle share, and busy time by kernel group;
    a trace that lost some of the port's kernel launches is taken again;
@@ -56,14 +72,18 @@ kernel libraries under build/torch_kernels/.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
+import io
 import json
 import math
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -117,6 +137,11 @@ SERVE_BF16_RTOL = 4 * 2.0**-8
 INT8_PSNR_DB = 40.0
 # the S2D DN forward (f32, seeded weights) vs the plain DN forward, [0, 1] scale
 DN_ATOL = 2e-5
+RUN_CONFIG = ROOT / "res/configs/runs/esr_gen_sr.toml"
+CHECKPOINT = ROOT / "docs/convergence_esr_gen/best_params.npz"
+# the composite loss on the card (TF32 off) vs float64 on the CPU
+LOSS_RTOL = 1e-5  # value, relative
+LOSS_GRAD_RTOL = 1e-4  # gradient, relative to max|grad|
 TIMING_BUDGET_MS = 1000.0  # per timed function, after its first call
 
 
@@ -466,6 +491,7 @@ def phase_serve(tmp: Path):
         raise AssertionError(f"bf16 serve too far from f32: {err16}")
     ctx = {"files": files, "raw": raw, "ref": ref, "hr_max": hr_max, "params": params,
            "engine": f32_engine, "ds_cfg": ds_cfg, "model_cfg": model_cfg,
+           "preds": preds, "engines": engines,
            "profile": {f"model {k} (K2)": (e.predict, dense_block) for k, e in engines.items()}}
     return launches, ctx
 
@@ -913,7 +939,247 @@ def phase_serve_int8(ctx, tmp: Path) -> dict:
     if not (np.isfinite(pred).all() and pred.shape == ref.shape and psnr >= INT8_PSNR_DB):
         raise AssertionError(f"int8 serve below the gate: PSNR {psnr:.2f} dB")
     ctx["profile"]["int8 bf16 (K3)"] = (engine.predict, conv_i8)
+    ctx["int8_scales"], ctx["int8_preds"] = engine.int8_scales, pred
     return launches
+
+
+def _cli(argv) -> tuple:
+    """The port's CLI `main(argv)` in-process: (exit code, the JSON of its
+    last stdout line, seconds)."""
+    from xmm_superres_denoise_torch.cli import main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main([str(a) for a in argv])
+    lines = out.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None), time.perf_counter() - t0
+
+
+def _served(listing) -> np.ndarray:
+    from xmm_superres_denoise_torch.io.fits import read_image
+
+    return np.stack([read_image(p["prediction"])[0] for p in listing])
+
+
+def _psnr(pred, ref, hr_max) -> float:
+    return 10 * np.log10(1.0 / max(float(np.mean(((pred - ref) / hr_max) ** 2)), 1e-30))
+
+
+def phase_cli(ctx, tmp: Path) -> None:
+    from xmm_superres_denoise_torch.infer.run_file import infer_file
+    from xmm_superres_denoise_torch.io.fits import read_image
+    from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_SR
+    from xmm_superres_denoise_torch.ops import int8_forward
+    from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block
+    from xmm_superres_denoise_torch.utils.fingerprint import params_fingerprint
+    from xmm_superres_denoise_torch.utils.weights import flax_tree, load_params_npz
+
+    files, hr_max, ref = ctx["files"], ctx["hr_max"], ctx["ref"]
+    common = ["--run_config", RUN_CONFIG, "--checkpoint", CHECKPOINT, "--batch", SERVE_BATCH]
+    n_batches = math.ceil(SERVE_FILES / SERVE_BATCH)
+
+    # 1. serve --bf16, in-process
+    t0 = time.perf_counter()
+    dense_block.launches = 0
+    rc, listing, secs = _cli(["serve", *files, "--out", tmp / "cli_bf16", "--bf16", *common])
+    launches = dense_block.launches
+    if rc != 0 or len(listing) != SERVE_FILES:
+        raise AssertionError(f"cli serve --bf16: exit code {rc}, {listing}")
+    pred = _served(listing)
+    same = bool(np.array_equal(pred, ctx["preds"]["bf16"]))
+    say(
+        f"[cli] serve --bf16: {SERVE_FILES} files in {secs:.3f} s ({SERVE_FILES / secs:.2f} "
+        f"images/s incl. the engine's build and FITS read+write), dense_block launches "
+        f"{launches} ({launches / n_batches:.0f} per batch, expected 60); products bitwise "
+        f"equal to [serve]'s bf16: {same} ({time.perf_counter() - t0:.2f} s)"
+    )
+    if launches != 60 * n_batches or not same:
+        raise AssertionError(f"cli serve --bf16: {launches} launches, bitwise equal {same}")
+
+    # 2. serve --int8 twice with one fresh --int8_scales path
+    t0 = time.perf_counter()
+    scales_path = tmp / "int8_scales.json"
+    real, calls = int8_forward.calibrate_int8_scales, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    int8_forward.calibrate_int8_scales = counted
+    try:
+        runs = []
+        for i in range(2):
+            n_before = len(calls)
+            conv_i8.launches = 0
+            rc, listing, secs = _cli(["serve", *files, "--out", tmp / f"cli_int8_{i}", "--int8",
+                                      "--bf16", "--int8_scales", scales_path, *common])
+            if rc != 0 or len(listing) != SERVE_FILES:
+                raise AssertionError(f"cli serve --int8 run {i + 1}: exit code {rc}")
+            runs.append((_served(listing), secs, len(calls) - n_before, conv_i8.launches))
+    finally:
+        int8_forward.calibrate_int8_scales = real
+    saved = json.loads(scales_path.read_text())
+    fingerprint = params_fingerprint(
+        {"params": flax_tree(load_params_npz(CHECKPOINT, GeneratorRRDB_SR()))})
+    psnrs = [_psnr(r[0], ref, hr_max) for r in runs]
+    same = bool(np.array_equal(runs[0][0], runs[1][0]))
+    as_engine = bool(np.array_equal(runs[0][0], ctx["int8_preds"]))
+    theirs = ctx["int8_scales"]
+    rel = max(abs(saved["scales"][k] - v) / v for k, v in theirs.items())
+    say(
+        f"[cli] serve --int8 --bf16 --int8_scales (fresh path), twice: run 1 {runs[0][1]:.3f} s with "
+        f"{runs[0][2]} calibration(s), run 2 {runs[1][1]:.3f} s with {runs[1][2]} (the file "
+        f"loaded); conv_i8 launches {runs[0][3]} / {runs[1][3]} (expected {64 * n_batches}); "
+        f"the file holds {sorted(saved)} with {len(saved['scales'])} scales, fingerprint "
+        f"{saved['fingerprint']} equal to utils/fingerprint.py on the npz: "
+        f"{saved['fingerprint'] == fingerprint}; run 2 bitwise equal to run 1: {same}, run 1 to "
+        f"[serve-int8]'s products: {as_engine}; PSNR vs "
+        f"the f32 plain forward {psnrs[0]:.2f} / {psnrs[1]:.2f} dB (gate {INT8_PSNR_DB:.0f}); "
+        f"scales equal to [serve-int8]'s engine's: {saved['scales'] == theirs} (max relative "
+        f"difference {rel:.3e}) ({time.perf_counter() - t0:.2f} s)"
+    )
+    if (runs[0][2], runs[1][2]) != (1, 0) or set(saved) != {"fingerprint", "scales"}:
+        raise AssertionError(f"cli int8: calibrations {runs[0][2]}, {runs[1][2]}; {set(saved)}")
+    if saved["fingerprint"] != fingerprint or not same or not as_engine:
+        raise AssertionError(f"cli int8: fingerprint {saved['fingerprint']}, runs equal {same}, "
+                             f"equal to [serve-int8] {as_engine}")
+    if min(psnrs) < INT8_PSNR_DB or any(r[3] != 64 * n_batches for r in runs):
+        raise AssertionError(f"cli int8: PSNR {psnrs}, launches {[r[3] for r in runs]}")
+
+    # 3. the module entry point in its own process
+    t0 = time.perf_counter()
+    out = tmp / "cli_subprocess"
+    proc = subprocess.run(
+        [sys.executable, "-m", "xmm_superres_denoise_torch.cli", "infer", "--bf16",
+         "--fits", str(files[0]), "--out", str(out), "--run_config", str(RUN_CONFIG),
+         "--checkpoint", str(CHECKPOINT)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m ...cli infer --bf16: exit code {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    got = read_image(json.loads(proc.stdout.strip().splitlines()[-1])["prediction"])[0]
+    _, p_pred = infer_file(files[0], ctx["engines"]["bf16"], tmp / "cli_inprocess", 100.0,
+                           "esr_gen")
+    same = bool(np.array_equal(got, read_image(p_pred)[0]))
+    say(
+        f"[cli] python -m xmm_superres_denoise_torch.cli infer --bf16 (own process): exit code "
+        f"0, prediction {got.shape} bitwise equal to infer_file in-process: {same} "
+        f"({time.perf_counter() - t0:.2f} s)"
+    )
+    if not same:
+        raise AssertionError("cli infer subprocess differs from infer_file in-process")
+
+
+def phase_http(ctx, tmp: Path) -> None:
+    from xmm_superres_denoise_torch.infer.http_server import run_http_server
+    from xmm_superres_denoise_torch.infer.run_file import infer_file
+    from xmm_superres_denoise_torch.io.fits import read_image
+
+    t0 = time.perf_counter()
+    engine = ctx["engines"]["bf16"]
+    stop, ready, bound = threading.Event(), threading.Event(), {}
+
+    def on_bound(server):
+        bound["server"] = server
+        ready.set()
+
+    thread = threading.Thread(
+        target=run_http_server, args=("127.0.0.1", 0, engine),
+        kwargs=dict(hr_exp_ks=100.0, model_name="esr_gen", stop=stop, on_bound=on_bound),
+        daemon=True,
+    )
+    thread.start()
+    try:
+        if not ready.wait(60):
+            raise AssertionError("http: the server did not start")
+        url = f"http://127.0.0.1:{bound['server'].server_address[1]}"
+        same = []
+        for i, f in enumerate(ctx["files"]):
+            req = urllib.request.Request(url + "/infer", data=Path(f).read_bytes(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = read_image(r.read())[0]
+            _, p_pred = infer_file(f, engine, tmp / f"http_ref_{i}", 100.0, "esr_gen")
+            same.append(bool(np.array_equal(got, read_image(p_pred)[0])))
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    lat = stats.get("latency_ms", {})
+    say(
+        f"[http] run_http_server on {url}, bf16 engine: {len(same)} POSTs, responses bitwise "
+        f"equal to infer_file: {same}; /stats: {stats['requests']} requests, {stats['errors']} "
+        f"errors, latency p50 {lat.get('p50')} ms, p90 {lat.get('p90')} ms (host clock, incl. "
+        f"FITS decode and product write); stopped through its event: {not thread.is_alive()} "
+        f"({time.perf_counter() - t0:.2f} s)"
+    )
+    if not all(same) or stats["requests"] != len(same) or stats["errors"] or thread.is_alive():
+        raise AssertionError(f"http: bitwise {same}, stats {stats}, alive {thread.is_alive()}")
+
+
+def _loss_pair(shape, seed=11):
+    """A seeded target in [0, 1] (a coarse field, 8 x 8 px cells, plus noise)
+    and a prediction of it with noise, float32 numpy."""
+    g = np.random.default_rng(seed)
+    b, h, w, c = shape
+    coarse = g.uniform(0, 1, (b, h // 8, w // 8, c)).astype(np.float32)
+    target = np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2)
+    target = np.clip(target + 0.05 * g.standard_normal(shape, dtype=np.float32), 0, 1)
+    preds = np.clip(target + 0.1 * g.standard_normal(shape, dtype=np.float32), 1e-3, 1)
+    return preds.astype(np.float32), target.astype(np.float32)
+
+
+def phase_loss() -> None:
+    """The run config's composite loss and its gradient on the card against
+    float64 on the CPU, and the warm forward+backward time."""
+    from xmm_superres_denoise_torch.cli import load_run_config
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.train.loss import create_loss
+
+    t0 = time.perf_counter()
+    ds, _, _, sc_dict, loss_cfg = load_run_config(RUN_CONFIG)
+    loss = create_loss(sc_dict, loss_cfg)
+    shape = (ds.batch_size, ds.hr.res, ds.hr.res, 1)
+    preds, target = _loss_pair(shape)
+
+    def value_and_grad(dev, dtype):
+        x = torch.from_numpy(preds).to(dev, dtype).requires_grad_()
+        t = torch.from_numpy(target).to(dev, dtype)
+        with true_f32():
+            v = loss(x, t)
+            v.backward()
+        return v.detach(), x.grad
+
+    v, g = value_and_grad("cuda:0", torch.float32)
+    v64, g64 = value_and_grad("cpu", torch.float64)
+    v_err = abs(float(v) - float(v64)) / abs(float(v64))
+    g_scale = float(g64.abs().max())
+    g_err = float((g.double().cpu() - g64).abs().max())
+    x = torch.from_numpy(preds).to("cuda:0").requires_grad_()
+    t = torch.from_numpy(target).to("cuda:0")
+
+    def step():
+        x.grad = None
+        with true_f32():
+            loss(x, t).backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(step, iters=10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    terms = ", ".join(f"{n} x {p:.6g}" for n, p, _ in loss.terms)
+    say(
+        f"[loss] esr_gen_sr composite loss ({terms}, correction {loss.correction:.6g}) on "
+        f"{shape} f32, TF32 off: value {float(v):.8f} vs float64 on the CPU {float(v64):.8f}, "
+        f"relative diff {v_err:.3e} (tol {LOSS_RTOL:.0e}); d loss / d preds max|diff| "
+        f"{g_err:.3e} = {g_err / g_scale:.3e} x max|grad| {g_scale:.3e} (tol "
+        f"{LOSS_GRAD_RTOL:.0e}); forward+backward {ms:.3f} ms (CUDA events, warm), peak memory "
+        f"{peak:.2f} GiB ({time.perf_counter() - t0:.2f} s)"
+    )
+    if not (math.isfinite(float(v)) and v_err <= LOSS_RTOL and g_err <= LOSS_GRAD_RTOL * g_scale):
+        raise AssertionError(f"loss on the card: value {v_err}, gradient {g_err / g_scale}")
 
 
 LIBRARY_GROUPS = ("cuDNN/cuBLAS convolution or GEMM", "elementwise, copies and the rest")
@@ -1017,6 +1283,9 @@ def main() -> int:
             launches, ctx = phase_serve(Path(tmp))
             s2d_launches = phase_s2d(ctx)
             int8_launches = phase_serve_int8(ctx, Path(tmp))
+            phase_cli(ctx, Path(tmp))
+            phase_http(ctx, Path(tmp))
+        phase_loss()
         phase_profile(ctx)
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]

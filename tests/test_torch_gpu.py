@@ -626,3 +626,90 @@ def test_int8_forward_on_k3_matches_cpu(cuda):
     # the int32 sums are exact on both; the f32 epilogues differ by an ulp
     # at most, which can flip a code at a rounding tie
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=1e-3)
+
+
+def _small_run_config(tmp_path):
+    """The esr_gen_sr run config at 32^2 -> 64^2 (the smoke runs it at full size)."""
+    root = PARAMS.parents[2]
+    text = (root / "res/configs/runs/esr_gen_sr.toml").read_text()
+    path = tmp_path / "run.toml"
+    path.write_text(text.replace("res = 416", "res = 32").replace("res = 832", "res = 64"))
+    return path
+
+
+@pytest.mark.gpu
+def test_cli_int8_scales_round_trip_on_the_card(cuda, tmp_path, monkeypatch):
+    """`serve --int8 --int8_scales` twice on the card: the first run
+    calibrates and writes the fingerprint-bound file, the second loads it
+    and does not calibrate; both run every int8 convolution on K3 and give
+    bitwise the same products."""
+    import contextlib
+    import io
+    import json
+
+    from xmm_superres_denoise_torch.cli import main
+    from xmm_superres_denoise_torch.io.fits import read_image, write_image
+    from xmm_superres_denoise_torch.ops import int8_forward
+    from xmm_superres_denoise_torch.utils.fingerprint import params_fingerprint
+    from xmm_superres_denoise_torch.utils.weights import flax_tree, load_params_npz
+
+    g = np.random.default_rng(4)
+    for i in range(3):
+        hdr = {"EXPOSURE": 20_000.0, "CRPIX1": 10.0, "CRPIX2": 12.0, "CRVAL1": 150.0,
+               "CRVAL2": 2.0, "CDELT1": -0.001111, "CDELT2": 0.001111, "PA_PNT": 65.0}
+        write_image(tmp_path / f"det{i}.fits", g.poisson(2.0, (28, 30)).astype(np.int32), hdr)
+    calls = []
+    real = int8_forward.calibrate_int8_scales
+    monkeypatch.setattr(int8_forward, "calibrate_int8_scales",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    scales = tmp_path / "scales.json"
+    products = []
+    for i in range(2):
+        out = io.StringIO()
+        before = conv_i8.launches
+        with contextlib.redirect_stdout(out):
+            rc = main(["serve", str(tmp_path / "det*.fits"), "--checkpoint", str(PARAMS),
+                       "--out", str(tmp_path / f"out{i}"), "--run_config",
+                       str(_small_run_config(tmp_path)), "--batch", "2", "--int8",
+                       "--int8_scales", str(scales), "--device", str(cuda)])
+        assert rc == 0 and len(calls) == 1
+        assert conv_i8.launches == before + 64 * 2  # two batches
+        listing = json.loads(out.getvalue().strip().splitlines()[-1])
+        products.append([read_image(p["prediction"])[0] for p in listing])
+    saved = json.loads(scales.read_text())
+    assert saved["fingerprint"] == params_fingerprint(
+        {"params": flax_tree(load_params_npz(PARAMS, GeneratorRRDB_SR()))})
+    for a, b in zip(*products):
+        assert np.isfinite(a).all()
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_composite_loss_and_gradient_on_the_card_match_float64(cuda):
+    """The esr_gen_sr loss (psnr 0.5 + ms_ssim 0.5, sqrt table) at (2, 208,
+    208, 1) on the card with TF32 off against float64 on the CPU: value
+    within 1e-5 relative, gradient within 1e-4 x max|grad|."""
+    import tomllib
+
+    from xmm_superres_denoise_torch.train.loss import create_loss, load_scaling_tables
+
+    root = PARAMS.parents[2]
+    with open(root / "res/configs/loss_functions.toml", "rb") as f:
+        loss = create_loss(*load_scaling_tables(tomllib.load(f), "sqrt"))
+    g = np.random.default_rng(5)
+    target = np.repeat(np.repeat(g.uniform(0, 1, (2, 26, 26, 1)), 8, axis=1), 8, axis=2)
+    preds = np.clip(target + 0.1 * g.normal(size=target.shape), 1e-3, 1.0)
+    results = []
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        x = torch.from_numpy(preds).to(dev, dtype).requires_grad_()
+        with true_f32():
+            v = loss(x, torch.from_numpy(target).to(dev, dtype))
+            v.backward()
+        results.append((float(v), x.grad.double().cpu()))
+    (v, grad), (v64, grad64) = results
+    scale = grad64.abs().max().item()
+    err = (grad - grad64).abs().max().item()
+    print(f"value {v} vs {v64} ({abs(v - v64) / abs(v64):.3e} relative); gradient max|diff| "
+          f"{err:.3e} = {err / scale:.3e} x max|grad|")
+    assert abs(v - v64) <= 1e-5 * abs(v64)
+    assert err <= 1e-4 * scale

@@ -1,5 +1,8 @@
 """The port's stretch, normalization and geometry ops against the JAX
-package's, elementwise on the same numpy inputs, plus the TF32 switch.
+package's, elementwise on the same numpy inputs, plus the TF32 switch:
+padding and its inverse, the flux-conserving upsample, crops, and the
+mask -> (upsample) -> pad -> normalize chains `preprocess` and
+`preprocess_combine`.
 
 Tolerance: rtol 1e-6 / atol 1e-7, a few f32 ulps (the transcendental
 functions of the two libraries round differently in the last bit).
@@ -94,6 +97,57 @@ def test_random_crop_fractions_follow_the_generator():
     assert a == b and all(0.0 <= f <= 0.5 for f in a)
     with pytest.raises(ValueError, match="Unknown crop mode"):
         tp.crop_fractions("corner", 0.5)
+
+
+@pytest.mark.parametrize("shape,native", [((2, 64, 64), (60, 57)), ((416, 416), (411, 403))])
+def test_unpad_from_res_matches_jax_and_inverts_pad(shape, native):
+    x = np.random.default_rng(4).normal(size=shape).astype(np.float32)
+    got = tp.unpad_from_res(torch.from_numpy(x), native).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jp.unpad_from_res(jnp.asarray(x), native)))
+    y = torch.from_numpy(x[..., : native[0], : native[1]].copy())
+    np.testing.assert_array_equal(tp.unpad_from_res(tp.pad_to_res(y, shape[-1]), native), y)
+
+
+@pytest.mark.parametrize("scale", [1, 2, 4])
+@pytest.mark.parametrize("conserve_flux", [True, False])
+def test_upsample_nearest_matches_jax(scale, conserve_flux):
+    x = np.random.default_rng(5).uniform(0, 9, (2, 13, 11)).astype(np.float32)
+    got = tp.upsample_nearest(torch.from_numpy(x), scale, conserve_flux).numpy()
+    want = np.asarray(jp.upsample_nearest(jnp.asarray(x), scale, conserve_flux))
+    np.testing.assert_allclose(got, want, **TOL)
+    if conserve_flux:
+        np.testing.assert_allclose(got.sum(), x.sum(), rtol=1e-5)
+
+
+# asinh is left out: the JAX package's jitted `preprocess` cannot trace it
+# (its asinh stretch needs a concrete value)
+@pytest.mark.parametrize("mode", ["linear", "sqrt", "log"])
+@pytest.mark.parametrize("scale,masked", [(1, True), (2, False), (2, True)])
+def test_preprocess_matches_jax(mode, scale, masked):
+    g = np.random.default_rng(6)
+    rates = g.uniform(0, 3e-3, (2, 30, 28)).astype(np.float32)
+    mask = (g.uniform(size=(30, 28)) > 0.2).astype(np.float32) if masked else None
+    kw = dict(res=64, max_val=0.0022336, mode=mode, scale=scale)
+    got = tp.preprocess(torch.from_numpy(rates),
+                        None if mask is None else torch.from_numpy(mask), **kw).numpy()
+    want = np.asarray(jp.preprocess(jnp.asarray(rates),
+                                    None if mask is None else jnp.asarray(mask), **kw))
+    print(f"preprocess {mode} x{scale}: max|diff| {np.abs(got - want).max():.3e}")
+    np.testing.assert_allclose(got, want, **TOL)
+    assert got.shape == (2, 64, 64)
+
+
+@pytest.mark.parametrize("extra", [0, 2])
+@pytest.mark.parametrize("mode", ["linear", "sqrt"])
+def test_preprocess_combine_matches_jax(extra, mode):
+    g = np.random.default_rng(7)
+    imgs = g.uniform(0, 1e-3, (1 + extra, 2, 40, 37)).astype(np.float32)
+    mask = (g.uniform(size=(40, 37)) > 0.1).astype(np.float32)
+    kw = dict(res=48, max_val=0.0022336, mode=mode, extra=extra)
+    got = tp.preprocess_combine(torch.from_numpy(imgs), torch.from_numpy(mask), **kw).numpy()
+    want = np.asarray(jp.preprocess_combine(jnp.asarray(imgs), jnp.asarray(mask), **kw))
+    print(f"preprocess_combine {mode} extra={extra}: max|diff| {np.abs(got - want).max():.3e}")
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_true_f32_turns_tf32_off_for_conv_and_matmul_and_restores():

@@ -1,0 +1,369 @@
+"""Command line of the PyTorch port: the serving half.
+
+    python -m xmm_superres_denoise_torch.cli infer --fits F --checkpoint C.npz --out DIR --run_config R
+    python -m xmm_superres_denoise_torch.cli serve 'DIR/*.fits' --checkpoint C.npz --out DIR --run_config R
+    python -m xmm_superres_denoise_torch.cli serve DIR --watch ... (a polling daemon)
+    python -m xmm_superres_denoise_torch.cli http --checkpoint C.npz --run_config R [--port N]
+
+The port of the JAX package's `cli.py` subcommands `infer`, `serve` (with
+`--watch`) and `http`, with the same flags, the same JSON lines on standard
+output and the same run-config assembly (`load_run_config`). The engine runs
+on `--device`, `cuda:0` unless the caller asks for the CPU; without a card,
+a run that does not pass `--device cpu` fails. `--int8_scales` binds the
+calibrated int8 scales to the checkpoint with `utils/fingerprint.py`, whose
+digest is the JAX package's: one scales file serves both packages.
+
+Refused with exit code 2 and a message: `--mesh_data` other than 0 (the
+port serves on one card), `--plot` (PNG plots are not ported), ONNX
+checkpoints (the ONNX importer is not ported) and orbax checkpoint
+directories (they need JAX); a checkpoint is an npz in the Flax layout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import json
+import logging
+import signal
+import threading
+import tomllib
+from pathlib import Path
+
+import torch
+
+from .config.schema import RES_DIR, TrainerCfg
+from .config.schema import load_run_config as load_dataset_and_model
+
+log = logging.getLogger("xmmsr")
+
+
+class CliError(Exception):
+    """A refused request: `main` logs the message and returns 2."""
+
+
+def load_run_config(path: Path, res_dir: Path = RES_DIR):
+    """Run TOML -> (DatasetCfg, ModelCfg, TrainerCfg, loss sc_dict, LossCfg),
+    as the JAX package's `cli.load_run_config` assembles them: the model from
+    the registry, the loss weights and the stretch's scaling table from
+    `loss_functions.toml`, and `memory_efficient` forced on by `mesh.remat`."""
+    from .train.loss import load_scaling_tables
+
+    dataset_config, model_config = load_dataset_and_model(path, res_dir)
+    with open(path, "rb") as f:
+        cfg = tomllib.load(f)
+    with open(Path(res_dir) / "configs" / "loss_functions.toml", "rb") as f:
+        loss_toml = tomllib.load(f)
+    sc_dict, loss_config = load_scaling_tables(loss_toml, dataset_config.scaling)
+    trainer_config = TrainerCfg(**cfg.get("trainer", {}))
+    if trainer_config.mesh.remat and not model_config.memory_efficient:
+        model_config = dataclasses.replace(model_config, memory_efficient=True)
+    return dataset_config, model_config, trainer_config, sc_dict, loss_config
+
+
+def _device(args) -> torch.device:
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise CliError(
+            f"--device {args.device}: no CUDA card is visible; pass --device cpu "
+            "to run on the CPU"
+        )
+    return device
+
+
+def _check_serving_flags(args) -> None:
+    if getattr(args, "mesh_data", 0):
+        raise CliError(
+            f"--mesh_data {args.mesh_data}: the PyTorch port serves on one card "
+            "(multi-device serving is not ported; ROADMAP.md Queue 1, training "
+            "harness and parallel/*)"
+        )
+    if getattr(args, "plot", False):
+        raise CliError(
+            "--plot: PNG plots (_save_plots) are not ported to the PyTorch package "
+            "(ROADMAP.md Queue 1, utilities); the FITS products are written"
+        )
+
+
+def _load_checkpoint(ckpt: Path, model):
+    """npz checkpoint in the Flax layout -> the model's Flax arrays."""
+    from .utils.weights import load_params_npz
+
+    if ckpt.is_dir():
+        raise CliError(
+            f"--checkpoint {ckpt}: an orbax checkpoint directory needs JAX; export it "
+            "to npz with the JAX package's `cli.py export --out weights.npz`"
+        )
+    if ckpt.suffix == ".onnx":
+        raise CliError(
+            f"--checkpoint {ckpt}: ONNX checkpoints are not read by the PyTorch port "
+            "yet (ROADMAP.md Queue 1 item 10, ONNX); pass an npz"
+        )
+    if ckpt.suffix != ".npz":
+        raise CliError(f"--checkpoint {ckpt}: expected an .npz file")
+    if not ckpt.exists():
+        raise CliError(f"--checkpoint {ckpt}: no such file")
+    return load_params_npz(ckpt, model)
+
+
+def _load_scales(path, fingerprint: str):
+    """The int8 scales a `--int8_scales` file holds for this checkpoint, or
+    None when there is none to use (no file, or one bound to another
+    checkpoint: the engine then calibrates on its first batch)."""
+    if not path or not Path(path).exists():
+        return None
+    obj = json.loads(Path(path).read_text())
+    if isinstance(obj, dict) and "scales" in obj:
+        if obj.get("fingerprint") == fingerprint:
+            return obj["scales"]
+        log.warning(
+            "int8 scales %s were calibrated for a DIFFERENT checkpoint "
+            "(fingerprint mismatch); ignoring them and recalibrating from the "
+            "first batch.", path,
+        )
+        return None
+    log.warning(
+        "int8 scales %s carry no checkpoint fingerprint (legacy format); using "
+        "as-is. Re-save to bind them to this checkpoint.", path,
+    )
+    return obj
+
+
+def _build_engine(args):
+    """Run config -> model -> npz params -> optional fingerprint-bound int8
+    scales -> InferenceEngine on `--device`.
+
+    Returns (engine, ds_cfg, m_cfg, save_scales): `save_scales()` writes the
+    scales calibrated on the first batch, with the checkpoint's fingerprint,
+    when an `--int8_scales` path was given and no valid scales were loaded."""
+    from .data.datasets import load_det_mask
+    from .infer.run_file import InferenceEngine
+    from .models.registry import build_model
+    from .utils.fingerprint import params_fingerprint
+    from .utils.weights import flax_tree, params_from_flax
+
+    _check_serving_flags(args)
+    device = _device(args)
+    ds_cfg, m_cfg, _, _, _ = load_run_config(args.run_config)
+    lr = (ds_cfg.lr.res, ds_cfg.lr.res)
+    hr = (ds_cfg.hr.res, ds_cfg.hr.res) if ds_cfg.hr else lr
+    flat = _load_checkpoint(Path(args.checkpoint), build_model(m_cfg, lr, hr))
+    fingerprint = params_fingerprint({"params": flax_tree(flat)})
+
+    mask = load_det_mask(ds_cfg.lr.det_mask) if ds_cfg.lr.det_mask else None
+    scales_path = getattr(args, "int8_scales", None)
+    scales = _load_scales(scales_path, fingerprint) if args.int8 else None
+    engine = InferenceEngine(
+        m_cfg, ds_cfg, params_from_flax(flat), det_mask=mask,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        crop_p=getattr(args, "crop_p", 1.0), quantize=args.int8,
+        int8_scales=scales, device=device,
+    )
+
+    def save_scales() -> None:
+        if args.int8 and scales_path and scales is None and engine.int8_scales:
+            Path(scales_path).write_text(json.dumps({
+                "fingerprint": fingerprint,
+                "scales": engine.int8_scales,
+            }))
+
+    return engine, ds_cfg, m_cfg, save_scales
+
+
+def _hr_exp_ks(ds_cfg) -> float:
+    return float(ds_cfg.hr.exp if ds_cfg.hr else ds_cfg.lr.exps[0])
+
+
+def cmd_infer(args) -> int:
+    from .infer.run_file import infer_file
+
+    engine, ds_cfg, m_cfg, save_scales = _build_engine(args)
+    p_in, p_pred = infer_file(
+        Path(args.fits), engine, Path(args.out),
+        hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
+    )
+    save_scales()
+    print(json.dumps({"input": str(p_in), "prediction": str(p_pred)}))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Batched serving: detxy FITS files (paths or glob patterns, each file
+    once) through one warm engine -> product pairs. With --watch the
+    positional arguments are directories polled as a daemon."""
+    from .infer.run_file import serve_files, watch_and_serve
+
+    if args.watch:
+        dirs = [Path(p) for p in args.fits]
+        missing = [str(d) for d in dirs if not d.is_dir()]
+        if missing:
+            log.error("serve --watch: not directories: %s", missing)
+            return 2
+        engine, ds_cfg, m_cfg, save_scales = _build_engine(args)
+        stop = threading.Event()
+        prev = _install_stop_signals(stop)
+        log.info("serve --watch: polling %s every %.1fs (SIGTERM stops)",
+                 [str(d) for d in dirs], args.poll)
+        try:
+            n = watch_and_serve(
+                dirs, engine, Path(args.out),
+                hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
+                batch_size=args.batch, poll_s=args.poll, state_path=args.state,
+                stop=stop, max_polls=args.max_polls,
+            )
+        finally:  # in-process callers keep their handlers
+            _restore_stop_signals(prev)
+        save_scales()
+        print(json.dumps({"served": n}))
+        return 0
+
+    files: list = []
+    unmatched: list = []
+    for pat in args.fits:
+        hits = sorted(glob.glob(str(pat)))
+        if hits:
+            files.extend(hits)
+        elif Path(pat).exists():  # a literal path holding glob metacharacters
+            files.append(pat)
+        else:
+            unmatched.append(str(pat))
+    if unmatched or not files:
+        log.error("serve: no input files matched %s", unmatched or args.fits)
+        return 2
+    files = list(dict.fromkeys(files))  # overlapping patterns: serve once
+    engine, ds_cfg, m_cfg, save_scales = _build_engine(args)
+    results = serve_files(
+        files, engine, Path(args.out),
+        hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
+        batch_size=args.batch,
+    )
+    save_scales()
+    print(json.dumps([
+        {"file": str(f), "input": str(p[0]), "prediction": str(p[1])}
+        for f, p in zip(files, results)
+    ]))
+    return 0
+
+
+def cmd_http(args) -> int:
+    """HTTP inference service over one warm engine (infer/http_server.py);
+    SIGTERM and SIGINT stop it cleanly."""
+    from .infer.http_server import run_http_server
+
+    engine, ds_cfg, m_cfg, save_scales = _build_engine(args)
+    stop = threading.Event()
+    prev = _install_stop_signals(stop)
+    try:
+        server = run_http_server(
+            args.host, args.port, engine,
+            hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value, stop=stop,
+        )
+    finally:
+        _restore_stop_signals(prev)
+    save_scales()
+    print(json.dumps({"served": server.stats()}))
+    return 0
+
+
+def _install_stop_signals(stop: threading.Event) -> dict:
+    """SIGTERM/SIGINT -> stop.set(); returns the previous handlers. Only the
+    main thread can install handlers: elsewhere (tests or a notebook calling
+    `main()` in a worker thread) this does nothing and the caller stops the
+    daemon through the event."""
+    prev = {}
+    for s in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[s] = signal.signal(s, lambda *_: stop.set())
+        except ValueError:  # not the main thread
+            pass
+    return prev
+
+
+def _restore_stop_signals(prev: dict) -> None:
+    for s, h in prev.items():
+        try:
+            signal.signal(s, h)
+        except ValueError:
+            pass
+
+
+def _engine_flags(p: argparse.ArgumentParser) -> None:
+    """The flags of every subcommand that builds an engine."""
+    p.add_argument("--checkpoint", type=Path, required=True,
+                   help="npz checkpoint in the Flax layout")
+    p.add_argument("--run_config", type=Path, required=True)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 serving mode (f32 is the parity mode)")
+    p.add_argument("--int8", action="store_true",
+                   help="w8a8 quantized serving (RRDB models; scales calibrated "
+                        "on the first batch)")
+    p.add_argument("--int8_scales", type=Path, default=None,
+                   help="calibrated-scales JSON bound to the checkpoint: loaded "
+                        "if it exists and matches, written after the first "
+                        "batch's calibration otherwise")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="accepted for compatibility with the JAX package; the "
+                        "port serves on one card, so only 0 is allowed")
+    p.add_argument("--device", default="cuda:0",
+                   help="torch device to serve on (default cuda:0; cpu runs "
+                        "the kernels' plain versions)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The serving command line (testable without dispatch)."""
+    parser = argparse.ArgumentParser(prog="xmmsr-torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("infer", help="run SR/DN inference on a detxy FITS")
+    p.add_argument("--fits", type=Path, required=True)
+    p.add_argument("--out", type=Path, required=True)
+    p.add_argument("--plot", action="store_true", help="not ported: refused")
+    p.add_argument("--crop_p", type=float, default=1.0,
+                   help="crop fraction applied after padding, origin per the "
+                        "dataset crop_mode (1.0 = no crop)")
+    _engine_flags(p)
+    p.set_defaults(func=cmd_infer)
+
+    p = sub.add_parser("serve", help="batched serving: many detxy FITS through "
+                                     "one warm engine")
+    p.add_argument("fits", nargs="+", help="detxy FITS paths or glob patterns")
+    p.add_argument("--out", type=Path, required=True)
+    p.add_argument("--batch", type=int, default=32, help="device batch size")
+    p.add_argument("--plot", action="store_true", help="not ported: refused")
+    p.add_argument("--watch", action="store_true",
+                   help="daemon mode: the positional arguments are directories; "
+                        "new stable FITS files are served as they appear "
+                        "(SIGTERM stops cleanly)")
+    p.add_argument("--poll", type=float, default=2.0, help="watch poll interval, seconds")
+    p.add_argument("--state", type=Path, default=None,
+                   help="watch served-set JSON: a restarted daemon skips what "
+                        "it served")
+    p.add_argument("--max_polls", type=int, default=None,
+                   help="watch drain mode: exit after N polls (2 = one "
+                        "stability check and one serve pass)")
+    _engine_flags(p)
+    p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("http", help="HTTP inference service: POST a detxy FITS to "
+                                    "/infer, get the WCS product back (GET "
+                                    "/healthz, /stats)")
+    p.add_argument("--host", default="127.0.0.1", help="bind address (0.0.0.0 to expose)")
+    p.add_argument("--port", type=int, default=8572, help="TCP port (0 picks a free one)")
+    _engine_flags(p)
+    p.set_defaults(func=cmd_http)
+    return parser
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    args = build_parser().parse_args(argv)
+    try:
+        return args.func(args)
+    except CliError as e:
+        log.error("%s", e)
+        return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

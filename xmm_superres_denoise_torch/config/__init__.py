@@ -4,13 +4,18 @@ from .schema import (
     DatasetCfg,
     DatasetType,
     HrDatasetCfg,
+    LossCfg,
     LrDatasetCfg,
+    MeshCfg,
     ModelCfg,
+    OptimizerCfg,
     RrdbCfg,
+    TrainerCfg,
     load_run_config,
 )
 
 __all__ = [
     "BaseModels", "ConfigError", "DatasetCfg", "DatasetType", "HrDatasetCfg",
-    "LrDatasetCfg", "ModelCfg", "RrdbCfg", "load_run_config",
+    "LossCfg", "LrDatasetCfg", "MeshCfg", "ModelCfg", "OptimizerCfg", "RrdbCfg",
+    "TrainerCfg", "load_run_config",
 ]

@@ -8,15 +8,18 @@ run on the hand-written kernel when the device is a card. `quantize=True`
 serves the RRDB models through the int8 space-to-depth forward
 (`ops/int8_forward.py`, every int8 convolution on the K3 kernel).
 
-Left out of this slice, and refused loudly rather than ignored: the device
-mesh (`mesh`), the watch daemon and the HTTP server. Fingerprint-bound
-scales files belong to the CLI slice. Products are FITS only: no PNG
-plots.
+`serve_files` serves a set of files through one warm engine and
+`watch_and_serve` polls directories as a daemon; the HTTP service is
+`infer/http_server.py` and the command line `cli.py`, which also binds saved
+int8 scales to the checkpoint. Left out, and refused loudly rather than
+ignored: the device mesh (`mesh`). Products are FITS only: no PNG plots.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Mapping, Optional, Tuple, Union
@@ -221,9 +224,10 @@ class InferenceEngine:
         return self._tiles_pipeline(raw, batch_size, with_input=True)
 
 
-def load_rate_image(fits_file: Path) -> Tuple[np.ndarray, dict, float]:
-    """detxy FITS -> (rate image counts/s, header, exposure seconds), with a
-    warning when the exposure is outside the training regime."""
+def load_rate_image(fits_file: Union[Path, bytes]) -> Tuple[np.ndarray, dict, float]:
+    """detxy FITS (a path, or the file's bytes) -> (rate image counts/s,
+    header, exposure seconds), with a warning when the exposure is outside
+    the training regime."""
     img, hdr = read_image(fits_file)
     exposure = float(hdr.get("EXPOSURE", hdr.get("ONTIME", 0.0)))
     ontime_ks = exposure / 1000.0
@@ -323,6 +327,105 @@ def serve_files(
         for i, fut in pending:
             results[i] = fut.result()
     return results
+
+
+def watch_and_serve(
+    watch_dirs,
+    engine: InferenceEngine,
+    out_path: Path,
+    hr_exp_ks: float,
+    model_name: str,
+    batch_size: int = 32,
+    poll_s: float = 2.0,
+    pattern: str = "*.fits*",
+    state_path: Optional[Path] = None,
+    stop: Optional[threading.Event] = None,
+    max_polls: Optional[int] = None,
+) -> int:
+    """Directory-watching serving daemon over one warm engine.
+
+    * A file is picked up only once its (size, mtime) is unchanged between
+      two consecutive polls: a writer mid-copy is left for the next poll.
+    * Work identity is (path, size, mtime): an overwritten input is served
+      again; a re-poll of an already-served file is not.
+    * `state_path` keeps the served set as JSON (replaced atomically after
+      each batch), so a restarted daemon does not serve history again;
+      entries of deleted or overwritten inputs are pruned.
+    * A failed batch is served again file by file at batch size 1, so one
+      corrupt input cannot wedge the queue and a batch too large for the
+      device degrades to single tiles; a file that still fails is recorded
+      as failed and skipped thereafter.
+    * `stop` ends the loop at the next poll boundary; `max_polls` bounds it.
+
+    Returns the number of files served."""
+    watch_dirs = [Path(d) for d in (
+        watch_dirs if isinstance(watch_dirs, (list, tuple)) else [watch_dirs]
+    )]
+    stop = stop or threading.Event()
+
+    served: dict = {}
+    if state_path is not None and Path(state_path).exists():
+        try:
+            served = json.loads(Path(state_path).read_text())
+        except (OSError, ValueError) as e:
+            log.warning("watch: unreadable state %s (%s); starting fresh", state_path, e)
+
+    def _persist() -> None:
+        if state_path is None:
+            return
+        tmp = Path(str(state_path) + ".tmp")
+        tmp.write_text(json.dumps(served))
+        tmp.replace(state_path)
+
+    n_served = 0
+    pending: dict = {}  # path -> (size, mtime_ns) seen at the last poll
+    polls = 0
+    while not stop.is_set() and (max_polls is None or polls < max_polls):
+        polls += 1
+        snapshot: dict = {}
+        live_keys: set = set()
+        for d in watch_dirs:
+            for f in sorted(d.glob(pattern)):
+                try:
+                    st = f.stat()
+                except OSError:
+                    continue  # vanished between glob and stat
+                k = f"{f}|{st.st_size}|{st.st_mtime_ns}"
+                live_keys.add(k)
+                if k not in served:
+                    snapshot[f] = (st.st_size, st.st_mtime_ns, k)
+
+        stale = [k for k in served if k not in live_keys]
+        if stale:
+            for k in stale:
+                del served[k]
+            _persist()
+
+        ready = [f for f, (size, mt, _) in snapshot.items() if pending.get(f) == (size, mt)]
+        if ready:
+            try:
+                serve_files(ready, engine, out_path, hr_exp_ks, model_name,
+                            batch_size=batch_size)
+                for f in ready:
+                    served[snapshot[f][2]] = "ok"
+                n_served += len(ready)
+            except Exception as batch_err:  # isolate the bad input
+                log.warning("watch: batch failed (%s); serving per-file", batch_err)
+                for f in ready:
+                    try:
+                        serve_files([f], engine, out_path, hr_exp_ks, model_name, batch_size=1)
+                        served[snapshot[f][2]] = "ok"
+                        n_served += 1
+                    except Exception as e:
+                        log.error("watch: %s failed permanently: %s", f, e)
+                        served[snapshot[f][2]] = f"error: {e}"
+            _persist()
+
+        pending = {f: (size, mt) for f, (size, mt, _) in snapshot.items()}
+        if stop.is_set() or (max_polls is not None and polls >= max_polls):
+            break
+        stop.wait(poll_s)
+    return n_served
 
 
 def write_products(

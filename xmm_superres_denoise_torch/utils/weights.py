@@ -19,6 +19,10 @@ It raises on a key it does not know (extra) and on an incomplete model
 those sources, or a state_dict of the two generators, becomes the nested
 Flax tree of numpy arrays (HWIO kernels, no `params` root) that the JAX
 package's S2D and int8 builders read.
+
+`load_params_npz` reads from an npz checkpoint the arrays a given generator
+has, as the JAX package's loader fills its model's template (a DN model
+takes an SR checkpoint's trunk and conv_last and leaves its upsampler).
 """
 
 from __future__ import annotations
@@ -98,6 +102,31 @@ def params_from_flax(src: Union[str, Path, Mapping]) -> Dict[str, torch.Tensor]:
 _STATE = re.compile(r"^(.*)\.(weight|bias)$")
 
 
+def flax_key(state_key: str) -> str:
+    """A generator state_dict key -> its Flax key, '/'-joined without the
+    `params` root: `trunk.conv_first.weight` -> `trunk/conv_first/kernel`."""
+    module, kind = _STATE.match(state_key).groups()
+    return module.replace(".", "/") + ("/kernel" if kind == "weight" else "/bias")
+
+
+def load_params_npz(path: Union[str, Path], model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The Flax arrays of `model`'s parameters from an npz checkpoint,
+    float32, keyed as `flax_key` names them. Raises KeyError for a missing
+    array and ValueError for one of the wrong shape."""
+    out = {}
+    with np.load(path) as npz:
+        for state_key, t in model.state_dict().items():
+            key = flax_key(state_key)
+            arr = npz[f"params/{key}"]
+            shape = tuple(t.shape)
+            if not _DENSE.match(key) and key.endswith("/kernel"):
+                shape = (shape[2], shape[3], shape[1], shape[0])  # OIHW -> HWIO
+            if arr.shape != shape:
+                raise ValueError(f"{key}: shape {arr.shape} != the model's {shape}")
+            out[key] = np.asarray(arr, np.float32)
+    return out
+
+
 def flax_tree(src) -> Dict:
     """Flax params (any source `params_from_flax` takes) or a generator
     state_dict -> nested dict of numpy f32 arrays, without the `params`
@@ -107,11 +136,11 @@ def flax_tree(src) -> Dict:
     ):
         flat = {}
         for key, t in src.items():
-            module, kind = _STATE.match(key).groups()
+            name = flax_key(key)
             arr = t.detach().cpu().float().numpy()
-            if kind == "weight" and not _DENSE.match(module.replace(".", "/") + "/kernel"):
+            if name.endswith("/kernel") and not _DENSE.match(name):
                 arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-            flat[module.replace(".", "/") + ("/kernel" if kind == "weight" else "/bias")] = arr
+            flat[name] = arr
     else:
         flat = _flat_params(src)
     tree: Dict = {}
