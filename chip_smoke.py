@@ -52,11 +52,27 @@ Phases, each printing its result and its seconds:
 8. http: `run_http_server` on 127.0.0.1 (a free port) in a thread over the
    bf16 engine: each file POSTed, each response bitwise equal to
    `infer_file`'s prediction, then /stats, then the stop event;
-9. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
+9. eval: a synthetic simulated dataset tree (80 base names at the
+   detector's geometry, AGN and background sets, written with the port's
+   FITS codec) through `XmmDataModule` (the run config's dataset section,
+   on cuda:0): the val loader's batch of 8 at 416^2 -> 832^2 through the
+   f32 model (K2) and `make_eval_step` with the core and extended metric
+   collections and their `in:` input-baseline twins, held to the same
+   collections computed on the CPU in float64 from the card's own
+   predictions; ms per batch for the forward, the core and the extended
+   metrics, and the loader's host ms per batch;
+10. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
    sqrt table) on a seeded (8, 832, 832, 1) pair, value and d loss / d preds
    on the card (TF32 off) against float64 on the CPU, and the warm
    forward+backward time;
-10. profile: one warm batch of each serving mode (model f32 and bf16, S2D
+11. grad: one forward+backward of the full-width SR model (trained
+   weights, f32, TF32 off, the run config's loss, batch 1 at 416^2 ->
+   832^2, or 128^2 when the CPU reference would take over a minute) on the
+   card, its dense blocks through `dense_block`'s autograd route (K2
+   forward, recomputed backward), held parameter group by group to the same
+   on the CPU model; one bf16 forward+backward; the inference-only
+   `dense_block_s2d` and `conv_i8` refusing a gradient;
+12. profile: one warm batch of each serving mode (model f32 and bf16, S2D
    f32 and bf16, fast f32 and bf16, int8) traced with torch.profiler:
    device-busy time per image, idle share, and busy time by kernel group;
    a trace that lost some of the port's kernel launches is taken again;
@@ -1182,6 +1198,288 @@ def phase_loss() -> None:
         raise AssertionError(f"loss on the card: value {v_err}, gradient {g_err / g_scale}")
 
 
+GRAD_RTOL = 1e-4  # card vs CPU parameter gradients, relative to max|g| of each group
+GRAD_CPU_BUDGET_S = 60.0  # the CPU reference's forward+backward at 416^2, else 128^2
+EVAL_RTOL = 1e-4  # collections on the card vs float64 on the CPU, relative
+EVAL_FSIM_RTOL = 5e-4
+EVAL_BASE_NAMES = 80  # the sim split's val share (0.1) holds one batch of 8
+
+
+def _param_group(name: str) -> str:
+    """The parameter group of a generator parameter, for the [grad] report."""
+    parts = name.split(".")
+    return parts[1] if parts[0] == "trunk" else parts[0]
+
+
+def _sr_model(dtype=torch.float32, device="cuda:0"):
+    from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_SR
+    from xmm_superres_denoise_torch.utils.weights import params_from_flax
+
+    model = GeneratorRRDB_SR()
+    model.load_state_dict(params_from_flax(CHECKPOINT))
+    return model.to(device, dtype)
+
+
+def _fwd_bwd(model, loss, x, target):
+    """One forward and backward of the clamped model through the loss (f32
+    loss for a bf16 model); the grads stay on the model."""
+    for p in model.parameters():
+        p.grad = None
+    out = torch.clamp(model(x), 0.0, 1.0)
+    v = loss(out.float(), target)
+    v.backward()
+    return v.detach()
+
+
+def phase_grad(ctx) -> None:
+    """Gradients through K2: the full-width SR model with the trained
+    weights, f32 with TF32 off, the run config's loss; one forward+backward
+    on the card (dense blocks through `_DenseBlockFn`: K2 forward,
+    recomputed backward) against the same on the CPU model; a bf16
+    forward+backward; the inference-only ops' refusals."""
+    from xmm_superres_denoise_torch.cli import load_run_config
+    from xmm_superres_denoise_torch.ops.conv_i8 import Epilogue, conv_i8
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block
+    from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.train.loss import create_loss
+
+    t0 = time.perf_counter()
+    _, _, _, sc_dict, loss_cfg = load_run_config(RUN_CONFIG)
+    loss = create_loss(sc_dict, loss_cfg)
+    with torch.inference_mode():
+        x_full = ctx["engine"].prepare(torch.from_numpy(ctx["raw"][:1]).to("cuda:0")).cpu()
+    x_full = x_full.clone()  # a normal tensor, out of inference mode
+    _, target_full = _loss_pair((1, 832, 832, 1), seed=12)
+    target_full = torch.from_numpy(target_full)
+
+    # the CPU reference at 416^2 if its forward+backward fits the budget, as
+    # estimated from a 128^2 run (work grows with the pixel count)
+    cpu_model = _sr_model(device="cpu")
+    t1 = time.perf_counter()
+    with true_f32():
+        _fwd_bwd(cpu_model, loss, x_full[:, 144:272, 144:272], target_full[:, 288:544, 288:544])
+    est = (time.perf_counter() - t1) * (416 / 128) ** 2
+    side = 416 if est <= GRAD_CPU_BUDGET_S else 128
+    lo = (416 - side) // 2
+    x, target = x_full[:, lo:lo + side, lo:lo + side], target_full[:, 2 * lo:2 * (lo + side),
+                                                                   2 * lo:2 * (lo + side)]
+    x, target = x.contiguous(), target.contiguous()
+    t1 = time.perf_counter()
+    with true_f32():
+        v_cpu = _fwd_bwd(cpu_model, loss, x, target)
+    cpu_s = time.perf_counter() - t1
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+
+    model = _sr_model()
+    xc, tc = x.to("cuda:0"), target.to("cuda:0")
+    with true_f32():
+        dense_block.launches = 0
+        v = _fwd_bwd(model, loss, xc, tc)
+        torch.cuda.synchronize()
+        launches = dense_block.launches  # the forward's: the backward runs cuDNN
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    groups: dict = {}
+    for n, g in grads.items():
+        if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0:
+            raise AssertionError(f"[grad] {n}: gradient {None if g is None else g.abs().max()}")
+        err = float((g.double().cpu() - cpu_grads[n].double()).abs().max())
+        rel = err / float(cpu_grads[n].abs().max())
+        groups[_param_group(n)] = max(groups.get(_param_group(n), 0.0), rel)
+    with true_f32():
+        ms = _time_ms(lambda: _fwd_bwd(model, loss, xc, tc), iters=5)
+    worst = max(groups.values())
+    say(
+        f"[grad] esr_gen SR f32 (TF32 off), trained weights, run config loss, batch 1, {side}^2 -> "
+        f"{2 * side}^2 (CPU reference estimated {est:.1f} s at 416^2, budget "
+        f"{GRAD_CPU_BUDGET_S:.0f} s; took {cpu_s:.2f} s): loss {float(v):.8f} vs CPU "
+        f"{float(v_cpu):.8f}; {len(grads)} parameters, all finite and non-zero; dense_block "
+        f"launches in the step {launches} (expected 60, the forward's); largest max|g_card - g_cpu| / "
+        f"max|g_cpu| per group: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in groups.items())
+        + f" (tol {GRAD_RTOL:.0e}); forward+backward {ms:.3f} ms (CUDA events, warm)"
+    )
+    if len(grads) != 130 or launches != 60 or not worst <= GRAD_RTOL:
+        raise AssertionError(f"[grad] {len(grads)} grads, {launches} launches, worst {worst}")
+
+    model16 = _sr_model(torch.bfloat16)
+    dense_block.launches = 0
+    v16 = _fwd_bwd(model16, loss, xc.to(torch.bfloat16), tc)
+    torch.cuda.synchronize()
+    n16 = dense_block.launches
+    bad = [n for n, p in model16.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    ms16 = _time_ms(lambda: _fwd_bwd(model16, loss, xc.to(torch.bfloat16), tc), iters=5)
+    say(f"[grad] bf16: loss {float(v16):.6f}, gradients for "
+        f"{sum(p.grad is not None for p in model16.parameters())} parameters, non-finite {bad}, "
+        f"dense_block launches {n16}; forward+backward {ms16:.3f} ms (CUDA events, warm)")
+    if bad or n16 != 60 or sum(1 for _ in model16.parameters()) != 130:
+        raise AssertionError(f"[grad] bf16: non-finite {bad}, {n16} launches")
+
+    refused = []
+    xs = torch.zeros((1, 16, 104, 128), device="cuda:0", requires_grad=True)
+    w = [torch.zeros((3, 3, 128 * k, 128), device="cuda:0") for k in range(1, 6)]
+    b = [torch.zeros(128, device="cuda:0") for _ in range(5)]
+    ep = Epilogue(torch.ones(128, device="cuda:0"), torch.zeros(128, device="cuda:0"),
+                  torch.float32, res_scale=0.2)
+    residual = torch.zeros((1, 8, 8, 128), device="cuda:0", requires_grad=True)
+    calls = {
+        "dense_block_s2d": lambda: dense_block_s2d(xs, w, b),
+        "conv_i8": lambda: conv_i8(torch.zeros((1, 8, 8, 128), dtype=torch.int8, device="cuda:0"),
+                                   torch.zeros((3, 3, 128, 128), dtype=torch.int8,
+                                               device="cuda:0"), ep, residual=residual),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "inference only" in str(e):
+                refused.append(name)
+    say(f"[grad] with a gradient needed, refused: {refused} ({time.perf_counter() - t0:.2f} s)")
+    if refused != list(calls):
+        raise AssertionError(f"[grad] inference-only ops refused {refused}, expected {list(calls)}")
+
+
+def _collections(dm, scalers):
+    from xmm_superres_denoise_torch.metrics import (
+        get_ext_metrics,
+        get_in_ext_metrics,
+        get_in_metrics,
+        get_metrics,
+    )
+
+    return {"metrics": get_metrics(dm.normalizer, scalers, "val"),
+            "in:metrics": get_in_metrics(dm.normalizer, scalers, "val"),
+            "ext": get_ext_metrics(dm.normalizer, scalers, "val"),
+            "in:ext": get_in_ext_metrics(dm.normalizer, scalers, "val")}
+
+
+def phase_eval(tmp: Path) -> None:
+    """Evaluation on the card: a synthetic simulated dataset tree (80 base
+    names at the detector's geometry, 20 ks at 1x and 100 ks at 2x, AGN and
+    background sets), `XmmDataModule` from the run config's dataset section
+    on cuda:0, the val loader at batch 8 through the f32 model (K2) and
+    `make_eval_step` with the core and extended collections and their `in:`
+    twins for the trainer's scaling normalizer; the same collections on the
+    CPU in float64 from the card's own predictions and targets."""
+    import dataclasses
+
+    from xmm_superres_denoise_torch.config import load_run_config
+    from xmm_superres_denoise_torch.data import native_loader
+    from xmm_superres_denoise_torch.data.datamodule import XmmDataModule
+    from xmm_superres_denoise_torch.data.synthetic import write_sim_tree
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block
+    from xmm_superres_denoise_torch.ops.preprocess import upsample_nearest
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.ops.stretch import Normalizer
+    from xmm_superres_denoise_torch.train.loss import create_loss
+    from xmm_superres_denoise_torch.train.steps import clamped_apply, make_eval_step
+    from xmm_superres_denoise_torch.cli import load_run_config as load_cli_config
+
+    t0 = time.perf_counter()
+    ds_cfg, _ = load_run_config(RUN_CONFIG)
+    root = write_sim_tree(tmp / "data", name=ds_cfg.name, n_base=EVAL_BASE_NAMES,
+                          res_mult=ds_cfg.res_mult, lr_exp=ds_cfg.lr.exps[0],
+                          hr_exp=ds_cfg.hr.exp, variants=1, seed=7)
+    write_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(ds_cfg, directory=root)
+    dm = XmmDataModule(cfg, splits_root=tmp / "splits", seed=0, device="cuda:0")
+    scale = cfg.hr.res // cfg.lr.res
+    # the trainer's scaling normalizer (the JAX CLI's _build_trainer: linear)
+    scalers = [Normalizer(cfg.lr.clamp_max, cfg.hr.clamp_max, "linear")]
+    colls = _collections(dm, scalers)
+    _, _, _, sc_dict, loss_cfg = load_cli_config(RUN_CONFIG)
+    loss = create_loss(sc_dict, loss_cfg)
+    model = _sr_model()
+    preds = []
+
+    def apply(x):
+        y = clamped_apply(model, x)
+        preds.append(y)
+        return y
+
+    step = make_eval_step(apply, loss, {k: c.update for k, c in colls.items()}, upsample_input=scale)
+
+    t1 = time.perf_counter()
+    native = native_loader.native_available()  # g++ builds the reader at first use: not timed below
+    native_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    batches = list(dm.loader("val"))
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t1) * 1e3 / max(len(batches), 1)
+    t1 = time.perf_counter()
+    n_train = 0
+    for _ in dm.loader("train"):
+        n_train += 1
+        if n_train == 4:
+            break
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t1) * 1e3 / n_train
+    if len(batches) != 1 or batches[0]["lr"].shape != (8, 416, 416, 1) \
+            or batches[0]["hr"].shape != (8, 832, 832, 1) or not batches[0]["lr"].is_cuda:
+        raise AssertionError(f"[eval] val loader: {[tuple(b['lr'].shape) for b in batches]}")
+    batch = batches[0]
+
+    states = {k: c.init("cuda:0") for k, c in colls.items()}
+    with true_f32():
+        dense_block.launches = 0
+        states, loss_sum, w_sum = step(states, batch)
+        torch.cuda.synchronize()
+        launches = dense_block.launches
+    card = {k: {n: float(v) for n, v in c.compute(states[k]).items()} for k, c in colls.items()}
+    pred = preds[-1]
+
+    # the same collections on the CPU in float64, from the card's predictions
+    p64, t64, w64 = (t.detach().cpu().double() for t in (pred, batch["hr"], batch["weight"]))
+    lr64 = upsample_nearest(batch["lr"].cpu().double().permute(0, 3, 1, 2),
+                            scale).permute(0, 2, 3, 1)
+    worst = {}
+    for k, c in colls.items():
+        st = c.update(c.init("cpu", torch.float64), lr64 if k.startswith("in:") else p64, t64, w64)
+        ref = {n: float(v) for n, v in c.compute(st).items()}
+        for n, v64 in ref.items():
+            rel = abs(card[k][n] - v64) / max(abs(v64), 1e-12)
+            tol = EVAL_FSIM_RTOL if n.endswith("fsim") else EVAL_RTOL
+            if not (math.isfinite(card[k][n]) and rel <= tol):
+                raise AssertionError(f"[eval] {n}: card {card[k][n]} vs float64 {v64}")
+            worst[k] = max(worst.get(k, (0.0, "")), (rel, n))
+
+    # time the parts of one eval batch on the card
+    x, hr, w = batch["lr"], batch["hr"], batch["weight"]
+    with torch.no_grad(), true_f32():
+        fwd_ms = _time_ms(lambda: clamped_apply(model, x), iters=5)
+        up = upsample_nearest(x.permute(0, 3, 1, 2), scale).permute(0, 2, 3, 1)
+        parts = {}
+        for part, keys in (("core", ("metrics", "in:metrics")), ("extended", ("ext", "in:ext"))):
+            def run(keys=keys):
+                for k in keys:
+                    colls[k].update(colls[k].init("cuda:0"), up if k.startswith("in:") else pred,
+                                    hr, w)
+            parts[part] = _time_ms(run, iters=5)
+        step_ms = _time_ms(lambda: step({k: c.init("cuda:0") for k, c in colls.items()}, batch),
+                           iters=3)
+    headline = {n: round(v, 6) for n, v in card["metrics"].items()}
+    say(
+        f"[eval] synthetic sim tree ({EVAL_BASE_NAMES} base names, written in {write_s:.2f} s), "
+        f"val split {len(dm.split_indices('val'))} samples -> {len(batches)} batch of "
+        f"{tuple(x.shape)} -> {tuple(pred.shape)}, f32 model (TF32 off), dense_block launches "
+        f"{launches} (expected 60); loss sum {float(loss_sum):.6f} over weight {float(w_sum):.0f}; "
+        f"{headline}; vs float64 on the CPU, largest relative difference per collection: "
+        + ", ".join(f"{k} {r:.3e} ({n})" for k, (r, n) in worst.items())
+        + f" (tol {EVAL_RTOL:.0e}, fsim {EVAL_FSIM_RTOL:.0e})"
+    )
+    say(
+        f"[eval] per batch of 8 (CUDA events, warm): model forward {fwd_ms:.3f} ms, core metrics "
+        f"{parts['core']:.3f} ms, extended metrics {parts['extended']:.3f} ms, whole eval step "
+        f"{step_ms:.3f} ms; loader host time per batch (decode, composite, prepare on the card; "
+        f"native FITS reader {native}, built or loaded in {native_s:.2f} s before): "
+        f"val {val_ms:.1f} ms, train {train_ms:.1f} ms over {n_train} batches "
+        f"({time.perf_counter() - t0:.2f} s)"
+    )
+    if launches != 60 or float(w_sum) != 8.0:
+        raise AssertionError(f"[eval] {launches} dense_block launches, weight sum {float(w_sum)}")
+
+
 LIBRARY_GROUPS = ("cuDNN/cuBLAS convolution or GEMM", "elementwise, copies and the rest")
 K3_GROUPS = ("K3 s8 wgmma level", "K3 s8 mma.sync Tile128 (conv_first)")
 TRACE_TRIES = 3
@@ -1285,7 +1583,9 @@ def main() -> int:
             int8_launches = phase_serve_int8(ctx, Path(tmp))
             phase_cli(ctx, Path(tmp))
             phase_http(ctx, Path(tmp))
+            phase_eval(Path(tmp))
         phase_loss()
+        phase_grad(ctx)
         phase_profile(ctx)
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]

@@ -25,6 +25,13 @@ K3 runs at Cin % 128 == 0 the s8 twin of K1's wgmma level and otherwise
 (conv_first) the mma.sync Tile128, both with the int8 forward's epilogue
 inside: each fused variant must equal, bit for bit, its plain composition
 (the float64 convolution and the torch epilogue) run on the card.
+
+Training and evaluation: the full-width model's 130 parameter gradients
+through K2 (the dense block's autograd route) against the CPU model's, in
+f32 within 1e-4 x max|g| and in bf16 finite; the inference-only kernels'
+refusal of a gradient; the metric collections on the card against float64
+on the CPU (1e-4 relative, FSIM 5e-4); the data module's loader on the card
+against the same loader on the CPU.
 """
 
 import re
@@ -713,3 +720,193 @@ def test_composite_loss_and_gradient_on_the_card_match_float64(cuda):
           f"{err:.3e} = {err / scale:.3e} x max|grad|")
     assert abs(v - v64) <= 1e-5 * abs(v64)
     assert err <= 1e-4 * scale
+
+
+# --------------------------------------------------------------------------- #
+# gradients through K2, the inference-only refusals, evaluation on the card
+# --------------------------------------------------------------------------- #
+
+# l1 + psnr + ssim with the sqrt table: the run config's psnr + ms_ssim with
+# SSIM for MS-SSIM, which needs 208 px
+_GRAD_LOSS = dict(l1=0.3, poisson=0.0, psnr=0.4, ssim=0.3, ms_ssim=0.0)
+
+
+def _grad_loss():
+    import tomllib
+
+    from xmm_superres_denoise_torch.config.schema import LossCfg
+    from xmm_superres_denoise_torch.train.loss import create_loss
+
+    with open(PARAMS.parents[2] / "res/configs/loss_functions.toml", "rb") as f:
+        table = tomllib.load(f)["scaling"]["sqrt"]
+    return create_loss(table, LossCfg(**_GRAD_LOSS))
+
+
+def _grad_pair(shape=(1, 64, 64, 1), seed=3):
+    """An input and a target in the model's domain: Poisson count rates of
+    a 20 ks exposure at LR and of a 100 ks one at 2x, each a flat background
+    with point sources, normalized as the run config normalizes them (sqrt
+    stretch of the clamped rate)."""
+    from xmm_superres_denoise_torch.ops.stretch import normalize
+
+    g = np.random.default_rng(seed)
+
+    def rates(hw, exposure_s, scale):
+        lam = np.full(hw, g.uniform(0.5, 2.0) * exposure_s / 2e4)
+        for _ in range(6):
+            y, x = g.integers(0, hw[0] - 2 * scale), g.integers(0, hw[1] - 2 * scale)
+            lam[y:y + 2 * scale, x:x + 2 * scale] += g.uniform(5, 40) * exposure_s / 2e4
+        return torch.from_numpy((g.poisson(lam) / exposure_s).astype(np.float32))
+
+    b, h, w, _ = shape
+    x = torch.stack([rates((h, w), 2e4, 1) for _ in range(b)])[..., None]
+    t = torch.stack([rates((2 * h, 2 * w), 1e5, 2) for _ in range(b)])[..., None]
+    return normalize(x, 0.0022336, "sqrt"), normalize(t, 0.0005584, "sqrt")
+
+
+def _model_grads(device, dtype, x, target):
+    model = GeneratorRRDB_SR()
+    model.load_state_dict(params_from_flax(PARAMS))
+    model = model.to(device, dtype)
+    loss = _grad_loss()
+    with true_f32():
+        before = dense_block.launches
+        out = torch.clamp(model(x.to(device, dtype)), 0.0, 1.0)
+        launches = dense_block.launches - before
+        loss(out, target.to(device, dtype)).backward()
+    return {n: p.grad for n, p in model.named_parameters()}, launches
+
+
+@pytest.mark.gpu
+def test_model_gradients_on_the_card_match_the_cpu_model(cuda):
+    """Every one of the 130 parameters of the full-width esr_gen SR model gets
+    a finite, non-zero gradient through K2 (60 level launches in the
+    forward) within 1e-4 x max|g| of the CPU model's, in f32."""
+    x, target = _grad_pair()
+    card, launches = _model_grads(cuda, torch.float32, x, target)
+    cpu, cpu_launches = _model_grads("cpu", torch.float32, x, target)
+    # the noise floor: the CPU gradients again after a one-ulp change of the
+    # input (a LeakyReLU pre-activation within f32 noise of 0 flips its slope)
+    nudged, _ = _model_grads("cpu", torch.float32, torch.nextafter(x, x + 1), target)
+    assert launches == 60 and cpu_launches == 0
+    assert len(card) == 130
+    errs, floor = {}, 0.0
+    for n, g in card.items():
+        assert g is not None and torch.isfinite(g).all() and g.abs().max() > 0, n
+        scale = float(cpu[n].abs().max())
+        errs[n] = float((g.cpu() - cpu[n]).abs().max()) / scale
+        floor = max(floor, float((nudged[n] - cpu[n]).abs().max()) / scale)
+    worst = max(errs, key=errs.get)
+    print(f"130 gradients, largest max|g_card - g_cpu| / max|g_cpu| {errs[worst]:.3e} ({worst}); "
+          f"the CPU's own after a one-ulp input change: {floor:.3e}")
+    assert errs[worst] <= 1e-4, (worst, errs[worst])
+
+
+@pytest.mark.gpu
+def test_bf16_model_gradients_on_the_card_are_finite(cuda):
+    x, target = _grad_pair()
+    grads, launches = _model_grads(cuda, torch.bfloat16, x, target)
+    assert launches == 60 and len(grads) == 130
+    for n, g in grads.items():
+        assert g is not None and g.dtype == torch.bfloat16 and torch.isfinite(g).all(), n
+
+
+@pytest.mark.gpu
+def test_dense_block_routes_by_grad_mode_on_the_card(cuda):
+    x, ws = _block_inputs((1, 24, 40, 32), torch.float32, cuda, seed=4)
+    for grad_mode, wants in ((torch.no_grad, False), (torch.enable_grad, False)):
+        before = dense_block.launches
+        with grad_mode():
+            y = dense_block(x, *ws)
+        assert dense_block.launches - before == 5 and (y.grad_fn is not None) is wants
+    xg = x.clone().requires_grad_()
+    before = dense_block.launches
+    y = dense_block(xg, *ws)
+    assert dense_block.launches - before == 5
+    assert type(y.grad_fn).__name__ == "_DenseBlockFnBackward"
+    with true_f32():
+        plain = dense_block_reference(x, *ws)
+    assert float((y.detach() - plain).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_inference_only_ops_refuse_a_gradient_on_the_card(cuda):
+    from xmm_superres_denoise_torch.ops.dense_block import make_fast_rrdb_forward, rrdb_fused
+
+    x, ws = _block_inputs((1, 16, 104, 128), torch.float32, cuda, seed=5)
+    with pytest.raises(RuntimeError, match="inference only"):
+        dense_block_s2d(x.clone().requires_grad_(), ws[0::2], ws[1::2])
+    with pytest.raises(RuntimeError, match="inference only"):
+        dense_block_s2d(x, pack_weights([w.requires_grad_() for w in ws[0::2]], ws[1::2],
+                                        torch.float32))
+    x8 = torch.zeros((1, 8, 8, 128), dtype=torch.int8, device=cuda)
+    w8 = torch.zeros((3, 3, 128, 128), dtype=torch.int8, device=cuda)
+    ep = Epilogue(torch.ones(128, device=cuda), torch.zeros(128, device=cuda), torch.float32,
+                  res_scale=0.2)
+    residual = torch.zeros((1, 8, 8, 128), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="inference only"):
+        conv_i8(x8, w8, ep, residual=residual)
+    pairs = [[(torch.zeros(3, 3, 32 * k, 32, device=cuda), torch.zeros(32, device=cuda))
+              for k in range(1, 6)]] * 3
+    with pytest.raises(RuntimeError, match="inference only"):
+        rrdb_fused(torch.zeros((1, 8, 8, 32), device=cuda, requires_grad=True), pairs)
+    model = GeneratorRRDB_SR()
+    fast = make_fast_rrdb_forward(model, params_from_flax(PARAMS), torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="inference only"):
+        fast(torch.zeros((1, 16, 16, 1), device=cuda, requires_grad=True))
+
+
+@pytest.mark.gpu
+def test_collections_on_the_card_match_cpu_float64(cuda):
+    """Core and extended collections (with `in:` twins' keys) on the card in
+    f32 against the same on the CPU in float64: within 1e-4 relative, FSIM
+    5e-4."""
+    from xmm_superres_denoise_torch.metrics import (
+        get_ext_metrics,
+        get_in_metrics,
+        get_metrics,
+    )
+    from xmm_superres_denoise_torch.ops.stretch import Normalizer
+
+    g = np.random.default_rng(6)
+    coarse = g.uniform(0.05, 1, (3, 26, 26, 1))
+    t = np.clip(np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2)
+                + 0.03 * g.normal(size=(3, 208, 208, 1)), 0, 1)
+    p = np.clip(t + 0.05 * g.normal(size=t.shape), 0, 1)
+    w = np.array([1.0, 1.0, 0.0])
+    ds = Normalizer(0.0022336, 0.0005584, "sqrt")
+    scalers = [Normalizer(0.0022336, 0.0005584, m) for m in ("linear", "sqrt")]
+    worst = 0.0
+    for make in (get_metrics, get_in_metrics, get_ext_metrics):
+        coll = make(ds, scalers, "test")
+        out = []
+        for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+            st = coll.init(dev, dtype)
+            args = [torch.from_numpy(a).to(dev, dtype) for a in (p, t, w)]
+            with true_f32():
+                st = coll.update(st, *args)
+            out.append({k: float(v) for k, v in coll.compute(st).items()})
+        for k, v64 in out[1].items():
+            rel = abs(out[0][k] - v64) / max(abs(v64), 1e-12)
+            worst = max(worst, rel)
+            assert rel <= (5e-4 if k.endswith("fsim") else 1e-4), (k, out[0][k], v64)
+    print(f"collections on the card vs float64: largest relative difference {worst:.3e}")
+
+
+@pytest.mark.gpu
+def test_loader_on_the_card_matches_the_cpu_loader(cuda, tmp_path):
+    from xmm_superres_denoise_torch.config.schema import DatasetCfg, HrDatasetCfg, LrDatasetCfg
+    from xmm_superres_denoise_torch.data.datamodule import XmmDataModule
+    from xmm_superres_denoise_torch.data.synthetic import write_sim_tree
+
+    write_sim_tree(tmp_path, name="simds", n_base=20, lr_hw=(30, 28), seed=2)
+    cfg = DatasetCfg(lr=LrDatasetCfg(exps=[20], clamp_max=0.0022336, res=32),
+                     hr=HrDatasetCfg(exp=100, clamp_max=0.0005584, res=64),
+                     batch_size=3, directory=tmp_path, name="simds")
+    card = XmmDataModule(cfg, splits_root=tmp_path / "s", seed=1)
+    cpu = XmmDataModule(cfg, splits_root=tmp_path / "s", seed=1, device="cpu")
+    assert card.device == torch.device("cuda:0")
+    for a, b in zip(card.loader("train"), cpu.loader("train")):
+        for k in ("lr", "hr", "weight"):
+            assert a[k].is_cuda
+            np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(), rtol=0, atol=1e-6)

@@ -4,6 +4,7 @@ from .schema import (
     DatasetCfg,
     DatasetType,
     HrDatasetCfg,
+    ImageType,
     LossCfg,
     LrDatasetCfg,
     MeshCfg,
@@ -16,6 +17,6 @@ from .schema import (
 
 __all__ = [
     "BaseModels", "ConfigError", "DatasetCfg", "DatasetType", "HrDatasetCfg",
-    "LossCfg", "LrDatasetCfg", "MeshCfg", "ModelCfg", "OptimizerCfg", "RrdbCfg",
+    "ImageType", "LossCfg", "LrDatasetCfg", "MeshCfg", "ModelCfg", "OptimizerCfg", "RrdbCfg",
     "TrainerCfg", "load_run_config",
 ]

@@ -41,6 +41,12 @@ class DatasetType(str, Enum):
     BORING = "boring"
 
 
+class ImageType(str, Enum):
+    IMG = "img"
+    AGN = "agn"
+    BKG = "bkg"
+
+
 class BaseModels(str, Enum):
     ESR_GEN = "esr_gen"
     RRDB_DENOISE = "rrdb_denoise"
@@ -143,6 +149,39 @@ class DatasetCfg:
         _one_of("crop_mode", self.crop_mode, ("center", "random", "boresight"))
         _one_of("mode", self.mode, ("img", "agn"))
         _one_of("scaling", self.scaling, ("linear", "sqrt", "asinh", "log"))
+
+    @property
+    def res_mult(self) -> int:
+        if self.type is DatasetType.REAL or self.hr is None:
+            return 1  # no HR side (denoise-style / input-only datasets)
+        return self.hr.res // self.lr.res
+
+    def _mode_dir(self, mode: ImageType) -> Path:
+        if self.type is DatasetType.SIM:
+            d = self.directory / self.name / mode.value
+            if mode is ImageType.BKG and not d.exists():
+                # the shipped example data names this directory "background"
+                alt = self.directory / self.name / "background"
+                if alt.exists():
+                    return alt
+            return d
+        if mode is ImageType.IMG and self.type is DatasetType.REAL:
+            return self.directory / self.name
+        raise ConfigError(
+            f"No {mode.value.upper()} directory for dataset type '{self.type.value}'"
+        )
+
+    @property
+    def img_dir(self) -> Path:
+        return self._mode_dir(ImageType.IMG)
+
+    @property
+    def agn_dir(self) -> Path:
+        return self._mode_dir(ImageType.AGN)
+
+    @property
+    def bkg_dir(self) -> Path:
+        return self._mode_dir(ImageType.BKG)
 
 
 @dataclass

@@ -23,8 +23,10 @@ def build_model(
     m = config.model
     if config.memory_efficient:
         raise NotImplementedError(
-            "memory_efficient (activation checkpointing) belongs to training, "
-            "which is not ported yet (ROADMAP.md Queue 1, training harness)"
+            "memory_efficient (activation checkpointing) is refused until the training "
+            "harness lands (ROADMAP.md Queue 1, training harness: torch.utils.checkpoint "
+            "per RRDB, on the dense block's autograd route, ops/dense_block.py "
+            "_DenseBlockFn, which already recomputes each block in its backward)"
         )
 
     if name is BaseModels.ESR_GEN:

@@ -7,7 +7,9 @@ the JAX layouts: activations are NHWC and the dense-block weights HWIO.
   the card runs its 12 dense blocks (4 RRDB x 3) on the hand-written kernel
   and a model on the CPU runs the plain version. Its five convs hold HWIO
   weights, converted once at load; the block keeps them packed for the
-  kernel (`packed`) and packs again only when a parameter changed.
+  kernel (`packed`) and packs again only when a parameter changed. When a
+  gradient is needed it passes the raw parameters instead, and on the card
+  the block runs as one autograd node (`dense_block`'s `_DenseBlockFn`).
 * The five convs outside the trunk (conv_first, trunk_conv, upconv, HRconv,
   conv_last) hold `nn.Conv2d` (OIHW) weights, applied to the NCHW view of
   the NHWC activations (channels_last memory), so no layout copy is made;
@@ -36,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dense_block import PackedBlock, dense_block, pack_weights
+from ..ops.dense_block import PackedBlock, dense_block, grad_needed, pack_weights
 from ..ops.precision import lrelu, scalar_like
 
 Tensor = torch.Tensor
@@ -159,7 +161,14 @@ class ResidualDenseBlock5C(nn.Module):
         return self._pack
 
     def forward(self, x: Tensor) -> Tensor:
-        return dense_block(x.contiguous(), self.packed())
+        """The block on `dense_block`: with the raw parameters when autograd
+        must see them (on the card, `dense_block`'s autograd route, K2
+        forward and a recomputed backward), with the cached pack otherwise."""
+        x = x.contiguous()
+        params = self.flat_params()
+        if grad_needed(x, *params):
+            return dense_block(x, *params)
+        return dense_block(x, self.packed())
 
 
 class RRDB(nn.Module):

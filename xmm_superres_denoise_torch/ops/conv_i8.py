@@ -30,6 +30,9 @@ convolution.
   (|sum| <= 9 * 640 * 127^2 < 2^53), cast to int32; `Epilogue.apply`, the
   torch epilogue of `ops/int8_forward.py` op for op.
 * `conv_i8.launches` counts kernel launches, raw and fused alike.
+* K3 serves inference only: with grad enabled and a float operand (the
+  residual, the epilogue's scales or bias) that requires grad it raises
+  `RuntimeError` (`refuse_grad`) on every device.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .dense_block import refuse_grad
 from .precision import lrelu, scalar_like
 
 Tensor = torch.Tensor
@@ -230,6 +234,10 @@ def conv_i8(x8: Tensor, w8: Union[Tensor, PackedI8], epilogue: Optional[Epilogue
             codes: Optional[Tensor] = None):
     """SAME 3x3 s8 convolution, NHWC in; int32 NHWC out, or what the
     epilogue writes (module docstring)."""
+    if epilogue is None:
+        refuse_grad("conv_i8", residual)
+    else:
+        refuse_grad("conv_i8", residual, epilogue.c_o, epilogue.bias)
     packed = w8 if isinstance(w8, PackedI8) else pack_weights(w8, x8.device)
     if x8.dim() != 4 or x8.dtype != torch.int8:
         raise TypeError(f"conv_i8 takes NHWC int8, got {tuple(x8.shape)} {x8.dtype}")

@@ -8,7 +8,10 @@ output `0.2 * x5 + x`.
 * `dense_block(x, w1, b1, ..., w5, b5)` or `dense_block(x, packed)` is the
   entry point. For a CUDA tensor it launches the kernel of
   `csrc/dense_block.cu` (five launches, one per level, over one NHWC concat
-  buffer) or raises; there is no fallback. bf16 levels run on the tensor
+  buffer) or raises; there is no fallback. When autograd must see the block
+  (grad enabled and `x` or a weight requires grad) a CUDA call goes through
+  `_DenseBlockFn`, whose forward is the same launches and whose backward
+  recomputes the block through the plain version (see its docstring). bf16 levels run on the tensor
   cores and read the weights packed as (9, C, k*C); f32 levels run on the
   CUDA cores (`csrc/conv3x3_f32.cuh`, FFMA only: TF32 would leave the f32
   parity class) and read HWIO. Both copy weights in 16-byte pieces, so
@@ -31,6 +34,8 @@ output `0.2 * x5 + x`.
   (JAX `rrdb_pallas`), `rrdb_params_from_flax` and `make_fast_rrdb_forward`,
   which runs the trunk on this kernel in the space-to-depth domain;
   `rrdb_chain` is the RRDB loop they share with `ops/s2d_forward.py`.
+  `rrdb_fused` and the fast forward serve inference only and raise
+  (`refuse_grad`) when a gradient is asked of them.
 
 What bounds the block and what the kernel's design does about it are in the
 note at the top of `csrc/dense_block.cu`. The library is built at first use
@@ -40,6 +45,7 @@ loaded with `ctypes`.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -47,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .precision import true_f32
 
 Tensor = torch.Tensor
 
@@ -179,27 +186,93 @@ def dense_block_reference(
     return out.to(dtype).permute(0, 2, 3, 1)
 
 
+def grad_needed(*tensors) -> bool:
+    """Whether autograd records a function of `tensors` here: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where an inference-only kernel would be asked for a gradient:
+    its output would carry no `grad_fn`, and a loss through it would
+    silently leave the parameters before it without a gradient."""
+    if grad_needed(*tensors):
+        raise RuntimeError(
+            f"{name} serves inference only and has no backward: run it under "
+            "torch.no_grad() or torch.inference_mode(), or differentiate the model's own "
+            "forward (its dense blocks run K2 through dense_block's autograd route)"
+        )
+
+
+def _launch(x: Tensor, packed: PackedBlock) -> Tensor:
+    check_packed(x, packed)  # f32 packs keep the caller's tensors: their alignment too
+    lib, level = level_kernel(x.dtype)
+    return launch_levels(x, packed.kernel, packed.biases, lib, "dense_block", level, dense_block)
+
+
+class _DenseBlockFn(torch.autograd.Function):
+    """The block as one autograd node: forward on K2, backward recomputed.
+
+    `apply(x, w1, b1, ..., w5, b5)` takes the ten raw parameters (HWIO, of
+    `x`'s dtype), so that autograd sees them. The forward packs them
+    (`pack_weights`) and launches K2's five levels on a CUDA input (the
+    plain version on a CPU one); it keeps only `x` and the parameters. The
+    backward runs the block again through `dense_block_reference` on
+    detached copies (cuDNN convolutions on the card, under `true_f32` in
+    f32 so that TF32 cannot enter) and returns `torch.autograd.grad` of it.
+
+    The JAX package differentiates Flax convolutions through the whole
+    model and has no backward kernel to port (no backward Pallas kernel and
+    no `custom_vjp`), so the backward is the plain composition's autograd.
+    Recomputing the block instead of storing its four intermediate
+    activations is per-block activation checkpointing: a step holds one
+    (B, H, W, C) input per block, not its (B, H, W, 5C) concat."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, *weights: Tensor) -> Tensor:
+        ctx.save_for_backward(x, *weights)
+        if x.device.type == "cpu":
+            return dense_block_reference(x, *weights)
+        _check_args(x, weights)
+        return _launch(x, pack_weights(weights[0::2], weights[1::2], x.dtype))
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        x, *weights = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        inputs = [t.detach().requires_grad_(need) for t, need in zip((x, *weights), needs)]
+        precision = true_f32() if x.dtype == torch.float32 else contextlib.nullcontext()
+        with torch.enable_grad(), precision:
+            y = dense_block_reference(*inputs)
+            wanted = [t for t, need in zip(inputs, needs) if need]
+            grads = iter(torch.autograd.grad(y, wanted, grad_out))
+        return tuple(next(grads) if need else None for need in needs)
+
+
 def dense_block(x: Tensor, *weights) -> Tensor:
     """One ResidualDenseBlock5C forward (SAME padding), NHWC.
 
     `weights` is ten tensors (w1, b1, ..., w5, b5), HWIO, or one
     `PackedBlock` of `x`'s dtype. A CUDA input runs the hand-written kernel
-    (or raises); a CPU input runs `dense_block_reference`."""
+    (or raises): through `_DenseBlockFn` when autograd must see the block
+    (`grad_needed` of `x` and the weights; a pack's tensors stand for the
+    weights then), straight otherwise. A CPU input runs
+    `dense_block_reference`."""
     packed = weights[0] if len(weights) == 1 and isinstance(weights[0], PackedBlock) else None
     if packed is None and len(weights) != 10:
         raise TypeError("dense_block takes ten weight tensors or one PackedBlock")
+    raw = weights if packed is None else [t for pair in zip(packed.hwio, packed.biases) for t in pair]
     if x.device.type == "cpu":
-        if packed is not None:
-            weights = [t for pair in zip(packed.hwio, packed.biases) for t in pair]
-        return dense_block_reference(x, *weights)
+        return dense_block_reference(x, *raw)
     if x.device.type != "cuda":
         raise ValueError(f"dense_block runs on cuda or cpu, got {x.device}")
+    if grad_needed(x, *raw):
+        return _DenseBlockFn.apply(x, *raw)
     if packed is None:
         _check_args(x, weights)
         packed = pack_weights(weights[0::2], weights[1::2], x.dtype)
-    check_packed(x, packed)  # f32 packs keep the caller's tensors: their alignment too
-    lib, level = level_kernel(x.dtype)
-    return launch_levels(x, packed.kernel, packed.biases, lib, "dense_block", level, dense_block)
+    return _launch(x, packed)
 
 
 def level_kernel(dtype: torch.dtype):
@@ -265,7 +338,9 @@ def rrdb_chain(x: Tensor, rrdbs, block) -> Tensor:
 def rrdb_fused(x: Tensor, block_params) -> Tensor:
     """One RRDB through three `dense_block` calls: out * 0.2 + x.
 
-    block_params: three dense blocks, each five (w, b) pairs (HWIO)."""
+    block_params: three dense blocks, each five (w, b) pairs (HWIO).
+    Inference only: raises when a gradient is asked of it."""
+    refuse_grad("rrdb_fused", x, *[a for rdb in block_params for pair in rdb for a in pair])
     return rrdb_chain(
         x, [block_params],
         lambda t, pairs: dense_block(t.contiguous(), *[a for pair in pairs for a in pair]),
@@ -302,7 +377,8 @@ def make_fast_rrdb_forward(model, params, dtype=torch.bfloat16, device="cuda:0")
     numpy and only then cast to `dtype` (`s2d_forward._transform_trunk`),
     and each dense block is packed once, here. conv_first, trunk_conv and
     the head stay cuDNN convolutions at full resolution. f32 runs with TF32
-    off. The JAX version's `tile` and `interpret` arguments choose the TPU
+    off. Inference only: the forward raises when a gradient is asked of it
+    (`refuse_grad`). The JAX version's `tile` and `interpret` arguments choose the TPU
     kernel's tiling and its interpreter and have no counterpart here."""
     from ..models.rrdb import GeneratorRRDB_SR, conv3x3_nhwc, pixel_shuffle
     from ..utils.weights import flax_tree
@@ -328,6 +404,7 @@ def make_fast_rrdb_forward(model, params, dtype=torch.bfloat16, device="cuda:0")
         hr = conv_w(p["HRconv"])
 
     def forward(x: Tensor) -> Tensor:
+        refuse_grad("make_fast_rrdb_forward's forward", x)
         x = x.to(dtype)
         fea = conv3x3_nhwc(x, *first)
         t = rrdb_chain(s2d(fea).contiguous(), blocks, dense_block)

@@ -29,6 +29,9 @@ input, HWIO weights cast to the input's dtype, f32 accumulation, output
 * `dense_block_s2d_reference` is the plain version: the gather form, f32
   convolutions, each level rounded to `x.dtype` as the kernel stores it.
 * `dense_block_s2d.launches` counts kernel launches (five per call).
+* K1 serves inference only: with grad enabled and an input that requires
+  grad it raises `RuntimeError` (`refuse_grad`) on every device, rather than
+  return a tensor without a `grad_fn`.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from .dense_block import (  # noqa: F401  (PackedBlock, pack_weights: re-exporte
     PackedBlock,
     check_packed,
     dense_block_reference,
+    refuse_grad,
     launch_levels,
     level_kernel,
     pack_weights,
@@ -92,7 +96,12 @@ def dense_block_s2d(
 ) -> Tensor:
     """One ResidualDenseBlock5C forward in the S2D domain (SAME padding)."""
     _check_tiling(x, h_strip, w_tile)
-    packed = weights if isinstance(weights, PackedBlock) else pack_weights(weights, biases, x.dtype)
+    if isinstance(weights, PackedBlock):
+        refuse_grad("dense_block_s2d", x, *weights.hwio, *weights.biases)
+        packed = weights
+    else:
+        refuse_grad("dense_block_s2d", x, *weights, *biases)
+        packed = pack_weights(weights, biases, x.dtype)
     if x.device.type == "cpu":
         return dense_block_s2d_reference(x, packed.hwio, packed.biases)
     if x.device.type != "cuda":

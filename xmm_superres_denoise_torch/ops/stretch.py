@@ -112,3 +112,11 @@ class Normalizer:
 
     def denormalize_hr(self, x: Tensor) -> Tensor:
         return denormalize(x, self.hr_max, self.mode)
+
+    # bare stretch/destretch (no clamping or scaling): the metric
+    # collections' per-stretch re-scaling (metrics/collection.py)
+    def stretch_only(self, x: Tensor) -> Tensor:
+        return stretch(x, self.mode)
+
+    def destretch_only(self, x: Tensor) -> Tensor:
+        return destretch(x, self.mode)
