@@ -61,18 +61,34 @@ Phases, each printing its result and its seconds:
    collections computed on the CPU in float64 from the card's own
    predictions; ms per batch for the forward, the core and the extended
    metrics, and the loader's host ms per batch;
-10. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
+10. train: training through the command line on the same tree, the shipped
+   esr_gen_sr run config at full width (batch 8, 416^2 -> 832^2, f32,
+   s2d_train as shipped: the dense blocks on K1 through its gradient route)
+   with only its epochs (2), checkpoint root and data directory changed:
+   `cli fit` in-process with each train step timed (CUDA events) and its K1
+   and K2 launches counted (60 K1 per step, none of K2), the files the fit
+   leaves (checkpoints, best.json, history.jsonl, TB events, the run config),
+   `cli test` bitwise equal to the fit's test; one epoch in bf16 and one with
+   s2d_train = false (60 K2 launches per step); one step through DDP on NCCL
+   at world size 1, bitwise equal to the unwrapped step;
+11. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
    sqrt table) on a seeded (8, 832, 832, 1) pair, value and d loss / d preds
    on the card (TF32 off) against float64 on the CPU, and the warm
    forward+backward time;
-11. grad: one forward+backward of the full-width SR model (trained
+12. grad: one forward+backward of the full-width SR model (trained
    weights, f32, TF32 off, the run config's loss, batch 1 at 416^2 ->
    832^2, or 128^2 when the CPU reference would take over a minute) on the
    card, its dense blocks through `dense_block`'s autograd route (K2
    forward, recomputed backward), held parameter group by group to the same
-   on the CPU model; one bf16 forward+backward; the inference-only
-   `dense_block_s2d` and `conv_i8` refusing a gradient;
-12. profile: one warm batch of each serving mode (model f32 and bf16, S2D
+   on the CPU model; the same through the S2D training route
+   (`make_s2d_train_apply`: K1 forward, 60 launches) held to the same CPU
+   gradients, with its f32 and bf16 times; one bf16 forward+backward; the
+   inference-only `dense_block_s2d` and `conv_i8` refusing a gradient;
+13. train-routes: the measurements behind the S2D route's design at batch
+   8: a dense block's backward in the original domain (C = 32) against
+   the S2D domain on cuDNN (C = 128, NCHW and channels_last), and the
+   outer convolutions in both domains, f32 (TF32 off) and bf16;
+14. profile: one warm batch of each serving mode (model f32 and bf16, S2D
    f32 and bf16, fast f32 and bf16, int8) traced with torch.profiler:
    device-busy time per image, idle share, and busy time by kernel group;
    a trace that lost some of the port's kernel launches is taken again;
@@ -1231,6 +1247,48 @@ def _fwd_bwd(model, loss, x, target):
     return v.detach()
 
 
+def _s2d_route_grads(model, loss, x, target, cpu_grads):
+    """The f32 model's S2D training route on the card: per-group gradient
+    error against the CPU model's, K1 launches per forward+backward, and ms
+    per forward+backward in f32 (TF32 off) and bf16 (the parameters cast
+    inside the forward, as the trainer's bf16 step does)."""
+    from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_train_apply
+
+    apply = make_s2d_train_apply(model)
+
+    def step(dtype):
+        for p in model.parameters():
+            p.grad = None
+        v = loss(apply(model, x.to(dtype)).float(), target)
+        v.backward()
+        return v.detach()
+
+    launches, ms = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        # TF32 off for the f32 step only, as the trainer runs its steps
+        with true_f32() if name == "f32" else contextlib.nullcontext():
+            dense_block_s2d.launches = 0
+            step(dtype)
+            torch.cuda.synchronize()
+            launches[name] = dense_block_s2d.launches
+            if name == "f32":
+                groups: dict = {}
+                for n, p in model.named_parameters():
+                    g = p.grad
+                    if g is None or not torch.isfinite(g).all():
+                        raise AssertionError(f"[grad] S2D route {n}: gradient {g}")
+                    rel = float((g.double().cpu() - cpu_grads[n].double()).abs().max()) / float(
+                        cpu_grads[n].abs().max())
+                    groups[_param_group(n)] = max(groups.get(_param_group(n), 0.0), rel)
+            elif any(p.grad is None or not torch.isfinite(p.grad).all()
+                     for p in model.parameters()):
+                raise AssertionError("[grad] S2D route bf16: a gradient is missing or not finite")
+            ms[name] = _time_ms(lambda: step(dtype), iters=5)
+    return groups, launches, ms
+
+
 def phase_grad(ctx) -> None:
     """Gradients through K2: the full-width SR model with the trained
     weights, f32 with TF32 off, the run config's loss; one forward+backward
@@ -1302,6 +1360,22 @@ def phase_grad(ctx) -> None:
     if len(grads) != 130 or launches != 60 or not worst <= GRAD_RTOL:
         raise AssertionError(f"[grad] {len(grads)} grads, {launches} launches, worst {worst}")
 
+    # the S2D training route (make_s2d_train_apply): the same function with
+    # the dense blocks on K1, recomputed in the original domain backward
+    s2d_groups, s2d_launches, s2d_ms = _s2d_route_grads(model, loss, xc, tc, cpu_grads)
+    s2d_worst = max(s2d_groups.values())
+    say(
+        f"[grad] S2D training route (make_s2d_train_apply, f32, TF32 off): dense_block_s2d "
+        f"launches in the step {s2d_launches['f32']} (expected 60: 12 blocks x 5 levels, the "
+        f"forward's); largest max|g_card - g_cpu| / max|g_cpu| per group: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in s2d_groups.items())
+        + f" (tol {GRAD_RTOL:.0e}); forward+backward f32 {s2d_ms['f32']:.3f} ms, bf16 "
+        f"{s2d_ms['bf16']:.3f} ms ({s2d_launches['bf16']} launches); the model route (K2) f32 "
+        f"{ms:.3f} ms (CUDA events, warm)"
+    )
+    if s2d_launches != {"f32": 60, "bf16": 60} or not s2d_worst <= GRAD_RTOL:
+        raise AssertionError(f"[grad] S2D route: {s2d_launches} launches, worst {s2d_worst}")
+
     model16 = _sr_model(torch.bfloat16)
     dense_block.launches = 0
     v16 = _fwd_bwd(model16, loss, xc.to(torch.bfloat16), tc)
@@ -1354,7 +1428,7 @@ def _collections(dm, scalers):
             "in:ext": get_in_ext_metrics(dm.normalizer, scalers, "val")}
 
 
-def phase_eval(tmp: Path) -> None:
+def phase_eval(tmp: Path) -> Path:
     """Evaluation on the card: a synthetic simulated dataset tree (80 base
     names at the detector's geometry, 20 ks at 1x and 100 ks at 2x, AGN and
     background sets), `XmmDataModule` from the run config's dataset section
@@ -1478,6 +1552,292 @@ def phase_eval(tmp: Path) -> None:
     )
     if launches != 60 or float(w_sum) != 8.0:
         raise AssertionError(f"[eval] {launches} dense_block launches, weight sum {float(w_sum)}")
+    return root
+
+
+TRAIN_BATCH = 8  # the run config's batch
+
+
+def _grads(fn, tensors, grad_out):
+    """Gradients of `fn(*tensors)` against `grad_out` for every tensor."""
+    inputs = [t.detach().requires_grad_() for t in tensors]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(*inputs), inputs, grad_out)
+
+
+def phase_train_routes() -> None:
+    """The measurements that chose the S2D training route's backward and
+    its outer convolutions, at the trainer's batch of 8, 416^2 (208^2 x 128
+    in the S2D domain), f32 with TF32 off and bf16 as the trainer runs it,
+    ms per call:
+
+    * a dense block's backward (recompute + data and weight gradients): in
+      the original domain at C = 32 through the plain version (f32
+      convolutions, each level rounded to the dtype) and as convolutions in
+      the dtype (channels_last); in the S2D domain at C = 128 as
+      convolutions in the dtype, NCHW and channels_last, through the weight
+      transform. `block_grads`, the backward of `_DenseBlockS2DFn` and
+      `_DenseBlockFn`, runs the first in f32 and the second in bf16;
+    * forward+backward of trunk_conv, upconv and HRconv in the original
+      domain (what the route runs) and in the S2D domain (what JAX runs)."""
+    from xmm_superres_denoise_torch.models.rrdb import conv3x3_nhwc
+    from xmm_superres_denoise_torch.ops.dense_block import (
+        block_grads,
+        cudnn_block,
+        dense_block_reference,
+    )
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.ops.space_to_depth import s2d, s2d_conv_weights_torch
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    needs = (True,) * 11
+    rows = []
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, flat = _block_inputs((TRAIN_BATCH, 416, 416, 32), dtype, dev, seed=3)
+        g = torch.randn_like(x)
+        x4, g4 = s2d(x).contiguous(), s2d(g).contiguous()
+
+        def s2d_domain(layout):
+            fmt = torch.contiguous_format if layout == "NCHW" else torch.channels_last
+
+            def block(xin, *p):
+                pairs = [s2d_conv_weights_torch(p[i], p[i + 1]) for i in range(0, 10, 2)]
+                return _library_block(
+                    xin, [w.permute(3, 2, 0, 1).contiguous(memory_format=fmt) for w, _ in pairs],
+                    [b for _, b in pairs])
+            xin, gin = x4.permute(0, 3, 1, 2), g4.permute(0, 3, 1, 2)
+            if layout == "NCHW":
+                xin, gin = xin.contiguous(), gin.contiguous()
+            return lambda: _grads(block, (xin, *flat), gin)
+
+        calls = {
+            "original C=32, plain version (f32 convolutions)": (
+                lambda: _grads(dense_block_reference, (x, *flat), g)),
+            f"original C=32, {name} convolutions channels_last": (
+                lambda: _grads(cudnn_block, (x, *flat), g)),
+            f"S2D C=128, {name} convolutions NCHW": s2d_domain("NCHW"),
+            f"S2D C=128, {name} convolutions channels_last": s2d_domain("channels_last"),
+        }
+        route = 0 if name == "f32" else 1
+        with true_f32() if name == "f32" else contextlib.nullcontext():
+            block_grads(x, flat, needs, g)  # the route itself runs
+            times = [(label, _time_ms(fn, iters=5, warmup=1)) for label, fn in calls.items()]
+        rows.append(f"{name}: " + ", ".join(
+            f"{label} {ms:.3f}{' (block_grads)' if i == route else ''}"
+            for i, (label, ms) in enumerate(times)))
+    say("[train-routes] one dense block's backward at batch 8 (416^2 x 32 = 208^2 x 128), ms: "
+        + "; ".join(rows))
+
+    rows = []
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for conv, side, cin, cout in (("trunk_conv", 416, 32, 32), ("upconv", 416, 32, 128),
+                                      ("HRconv", 832, 32, 32)):
+            g = torch.Generator(device=dev).manual_seed(1)
+            x = torch.rand((TRAIN_BATCH, side, side, cin), generator=g, device=dev).to(dtype)
+            w = (0.05 * torch.randn((3, 3, cin, cout), generator=g, device=dev)).to(dtype)
+            b = torch.zeros(cout, device=dev, dtype=dtype)
+
+            def fwd_bwd(domain):
+                xi, wi, bi = (t.detach().requires_grad_() for t in (x, w, b))
+                if domain == "original":
+                    y = conv3x3_nhwc(xi, wi.permute(3, 2, 0, 1), bi)
+                else:
+                    w4, b4 = s2d_conv_weights_torch(wi, bi)
+                    y = conv3x3_nhwc(s2d(xi), w4.permute(3, 2, 0, 1), b4)
+                return torch.autograd.grad(y, [xi, wi, bi], torch.ones_like(y))
+
+            with true_f32():
+                orig = _time_ms(lambda: fwd_bwd("original"), iters=5, warmup=1)
+                s2d_ms = _time_ms(lambda: fwd_bwd("s2d"), iters=5, warmup=1)
+            rows.append(f"{name} {conv} {orig:.3f} / {s2d_ms:.3f}")
+    say("[train-routes] outer convolutions' forward+backward at batch 8, original domain / S2D "
+        "domain (channels_last) ms: " + ", ".join(rows)
+        + f" ({time.perf_counter() - t0:.2f} s)")
+
+
+def _train_config(tmp: Path, root: Path, name: str, epochs: int, **trainer) -> Path:
+    """The shipped esr_gen_sr run config with `epochs`, its checkpoints
+    under `tmp/name`, the dataset directory `root` and the `trainer` keys."""
+    text = RUN_CONFIG.read_text()
+    text = re.sub(r"^epochs = .*$", f"epochs = {epochs}", text, count=1, flags=re.M)
+    text = re.sub(r'^checkpoint_root = .*$', f'checkpoint_root = "{tmp / name}"', text,
+                  count=1, flags=re.M)
+    text = re.sub(r'^directory = .*$', f'directory = "{root}"', text, count=1, flags=re.M)
+    for key, value in trainer.items():
+        if re.search(rf"^{key} = ", text, flags=re.M):
+            text = re.sub(rf"^{key} = .*$", f"{key} = {value}", text, count=1, flags=re.M)
+        else:
+            text = text.replace("[trainer]\n", f"[trainer]\n{key} = {value}\n", 1)
+    path = tmp / f"{name}.toml"
+    path.write_text(text)
+    return path
+
+
+def _cli_json(argv) -> tuple:
+    """`cli.main(argv)` in-process: (exit code, its standard output as JSON)."""
+    from xmm_superres_denoise_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    return rc, (json.loads(out.getvalue()) if out.getvalue().strip() else None)
+
+
+def _timed_fit(argv, epochs: int) -> tuple:
+    """`cli fit` in-process with each train step timed (CUDA events) and
+    its K1 and K2 launches counted; returns (rc, JSON, per-epoch rows)."""
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block
+    from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d
+    from xmm_superres_denoise_torch.train import loop
+
+    log = []
+    real = loop.make_train_step
+
+    def timed_make(*a, **k):
+        step = real(*a, **k)
+
+        def timed(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            k1, k2 = dense_block_s2d.launches, dense_block.launches
+            start.record()
+            out = step(state, batch)
+            end.record()
+            end.synchronize()
+            log.append((start.elapsed_time(end), dense_block_s2d.launches - k1,
+                        dense_block.launches - k2))
+            return out
+
+        return timed
+
+    loop.make_train_step = timed_make
+    try:
+        rc, logs = _cli_json(argv)
+    finally:
+        loop.make_train_step = real
+    per = max(len(log) // epochs, 1)
+    rows = []
+    for e in range(epochs):
+        part = log[e * per:(e + 1) * per]
+        warm = part[1:] if e == 0 and len(part) > 1 else part  # the first step builds and warms
+        rows.append({"steps": len(part), "ms": sum(t for t, _, _ in warm) / len(warm),
+                     "k1": sorted({a for _, a, _ in part}), "k2": sorted({b for _, _, b in part})})
+    return rc, logs, rows
+
+
+def phase_train(tmp: Path, root: Path) -> None:
+    """Training on the card through the command line: `cli fit` of the
+    shipped esr_gen_sr run config (full width, batch 8, 416^2 -> 832^2,
+    f32, s2d_train as shipped: the dense blocks on K1) for 2 epochs on the
+    synthetic tree, the files a fit leaves, `cli test` bitwise equal to the
+    fit's own test; one epoch in bf16 and one with s2d_train = false (K2);
+    and one DDP step on NCCL at world size 1 against the unwrapped step."""
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block
+    from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d
+
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp):  # the data module writes its splits under ./res/splits
+        run = _train_config(tmp, root, "fit_f32", 2)
+        dense_block_s2d.launches = dense_block.launches = 0
+        rc, fit_logs, rows = _timed_fit(["fit", run], 2)
+        k1_total, k2_total = dense_block_s2d.launches, dense_block.launches
+        fit_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[train] cli fit exited {rc}")
+        ckroot = tmp / "fit_f32" / "esr_gen"
+        history = [json.loads(line) for line in (ckroot / "history.jsonl").read_text().splitlines()]
+        for e, (row, h) in enumerate(zip(rows, history)):
+            say(f"[train] epoch {e}: {row['steps']} steps, {row['ms']:.1f} ms per train step "
+                f"(CUDA events{', warm steps' if e == 0 else ''}), dense_block_s2d launches per "
+                f"step {row['k1']}, dense_block {row['k2']}; train/loss {h['train/loss']:.6f}, "
+                f"val/loss {h['val/loss']:.6f}; {h['time_s']:.1f} s")
+        files = {
+            "ckpts": sorted(p.name for p in (ckroot / "ckpts").glob("*.pt")),
+            "best.json": json.loads((ckroot / "best.json").read_text()),
+            "history.jsonl": len(history),
+            "tb": [p.name for p in (ckroot / "tb").glob("events.out.tfevents.*")],
+            "run_config.toml": (ckroot / "run_config.toml").exists(),
+        }
+        t1 = time.perf_counter()
+        rc_test, test_logs = _cli_json(["test", run])
+        test_s = time.perf_counter() - t1
+        bad = [k for k, v in fit_logs.items() if v is None or not math.isfinite(v)]
+        say(f"[train] cli fit: 2 epochs in {fit_s:.1f} s, K1 launches {k1_total}, K2 launches "
+            f"{k2_total}; files {files}; cli test (best checkpoint) rc {rc_test} in {test_s:.1f} "
+            f"s, {len(test_logs or {})} metrics, bitwise equal to the fit's test: "
+            f"{test_logs == fit_logs}; test/loss {fit_logs['test/loss']:.6f}, non-finite {bad}")
+        ok = (rc_test == 0 and test_logs == fit_logs and not bad and len(history) == 2
+              and files["ckpts"] == ["1.pt", "2.pt"] and files["tb"] and files["run_config.toml"]
+              and all(math.isfinite(h[k]) for h in history for k in ("train/loss", "val/loss"))
+              and all(r["k1"] == [60] and r["k2"] == [0] for r in rows))
+        if not ok:
+            raise AssertionError(f"[train] fit/test: rows {rows}, files {files}")
+
+        for name, trainer, want in (("fit_bf16", {"precision": '"bf16"'}, ([60], [0])),
+                                    ("fit_model_route", {}, ([0], [60]))):
+            run = _train_config(tmp, root, name, 1, **trainer)
+            if name == "fit_model_route":
+                run.write_text(run.read_text().replace("s2d_train = true", "s2d_train = false"))
+            t1 = time.perf_counter()
+            rc, logs, (row,) = _timed_fit(["fit", run, "--no-extended"], 1)
+            say(f"[train] {name}: 1 epoch, {row['ms']:.1f} ms per train step (warm steps), "
+                f"dense_block_s2d launches per step {row['k1']}, dense_block {row['k2']}; "
+                f"test/loss {logs['test/loss']:.6f} ({time.perf_counter() - t1:.1f} s)")
+            if rc != 0 or (row["k1"], row["k2"]) != want or not math.isfinite(logs["test/loss"]):
+                raise AssertionError(f"[train] {name}: rc {rc}, row {row}")
+    _ddp_world_one()
+    say(f"[train] ({time.perf_counter() - t0:.2f} s)")
+
+
+def _ddp_world_one() -> None:
+    """One train step through DDP on NCCL at world size 1 against the same
+    step unwrapped, cuDNN deterministic: bitwise equal parameters."""
+    import socket
+
+    import torch.distributed as dist
+
+    from xmm_superres_denoise_torch.cli import load_run_config
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.parallel import make_mesh, wrap_ddp
+    from xmm_superres_denoise_torch.train import steps as ts
+    from xmm_superres_denoise_torch.train.loss import create_loss
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, _, sc_dict, loss_cfg = load_run_config(RUN_CONFIG)
+        loss = create_loss(sc_dict, loss_cfg)
+        g = np.random.default_rng(13)
+        batch = {"lr": torch.from_numpy(g.uniform(0, 1, (2, 104, 104, 1)).astype(np.float32)),
+                 "hr": torch.from_numpy(g.uniform(0, 1, (2, 208, 208, 1)).astype(np.float32))}
+        batch = {k: v.to("cuda:0") for k, v in batch.items()}
+        tx = ts.Tx(1e-4)
+        models, losses = [], []
+        for wrap in (False, True):
+            model = _sr_model()
+            module = wrap_ddp(model, make_mesh("auto", 1, "cuda"), torch.device("cuda:0")) \
+                if wrap else model
+            state = ts.TrainState.create(module, tx)
+            step = ts.make_train_step(ts.clamped_apply, loss, tx,
+                                      group=dist.group.WORLD if wrap else None)
+            with true_f32():
+                state, v = step(state, batch)
+            models.append(model)
+            losses.append(float(v))
+        same = all(torch.equal(p, q) for p, q in zip(models[0].parameters(),
+                                                      models[1].parameters()))
+        say(f"[train] DDP on NCCL, world size 1: loss {losses[1]:.8f} vs unwrapped "
+            f"{losses[0]:.8f}; parameters after the step bitwise equal: {same}")
+        if not same or losses[0] != losses[1]:
+            raise AssertionError("[train] DDP step differs from the unwrapped step")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
 
 
 LIBRARY_GROUPS = ("cuDNN/cuBLAS convolution or GEMM", "elementwise, copies and the rest")
@@ -1583,9 +1943,11 @@ def main() -> int:
             int8_launches = phase_serve_int8(ctx, Path(tmp))
             phase_cli(ctx, Path(tmp))
             phase_http(ctx, Path(tmp))
-            phase_eval(Path(tmp))
+            root = phase_eval(Path(tmp))
+            phase_train(Path(tmp), root)
         phase_loss()
         phase_grad(ctx)
+        phase_train_routes()
         phase_profile(ctx)
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]

@@ -16,6 +16,7 @@ import io
 import json
 import logging
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -341,3 +342,95 @@ def test_python_m_http_serves_what_the_jax_cli_infers_and_stops_on_sigterm(setup
     assert proc.returncode == 0, err
     stats = json.loads(out.strip().splitlines()[-1])["served"]
     assert stats["requests"] == 1 and stats["errors"] == 0
+
+
+# --------------------------------------------------------------------------
+# fit and test
+# --------------------------------------------------------------------------
+
+
+def _train_run_config(tmp, **trainer):
+    """The JAX CLI tests' boring run config at 104^2 -> 208^2 (MS-SSIM, in
+    the run config's loss, needs 208 px), 16 samples, image logging off."""
+    text = _write_run_config(tmp).read_text()
+    text = text.replace("res = 32", "res = 104").replace("res = 64", "res = 208")
+    text = text.replace('name = "boring_cli"', 'name = "boring_cli"\nboring_size = 16')
+    text = text.replace("log_images_every_n_epochs = 1", "log_images_every_n_epochs = 0")
+    for key, value in trainer.items():  # keys the config already sets
+        text = re.sub(rf"^{key} = .*$", f"{key} = {value}", text, count=1, flags=re.M)
+    path = tmp / "train.toml"
+    path.write_text(text)
+    return path
+
+
+def _small_model(load):
+    """`load_run_config` with the model cut to 4 filters and 1 RRDB."""
+    def wrapped(*a, **k):
+        ds, mc, tc, sc, lc = load(*a, **k)
+        if hasattr(mc, "model_copy"):  # the JAX package's pydantic config
+            mc = mc.model_copy(update={"model": mc.model.model_copy(
+                update={"filters": 4, "residual_blocks": 1})})
+        else:
+            mc.model.filters, mc.model.residual_blocks = 4, 1
+        return ds, mc, tc, sc, lc
+    return wrapped
+
+
+def _run_json(main, argv):
+    """`main(argv)` in-process: (exit code, its stdout parsed as one JSON object)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main([str(a) for a in argv])
+    return rc, (json.loads(out.getvalue()) if out.getvalue().strip() else None)
+
+
+def test_fit_then_test_prints_the_jax_clis_keys(tmp_path, monkeypatch):
+    run = _train_run_config(tmp_path)
+    monkeypatch.setattr(tcli, "load_run_config", _small_model(tcli.load_run_config))
+    monkeypatch.setattr(jcli, "load_run_config", _small_model(jcli.load_run_config))
+    monkeypatch.chdir(tmp_path)  # the splits are written under ./res/splits
+    rc, fit_logs = _run_json(tcli.main, ["fit", run, "--no-extended", "--device", "cpu"])
+    assert rc == 0
+    root = tmp_path / "ckpts/esr_gen"
+    assert {"best.json", "history.jsonl", "run_config.toml", "tb", "ckpts"} <= {
+        p.name for p in root.iterdir()}
+    rc, test_logs = _run_json(tcli.main, ["test", run, "--no-extended", "--device", "cpu"])
+    assert rc == 0 and test_logs == fit_logs  # test restores the best checkpoint fit tested
+    rc, ext = _run_json(tcli.main, ["test", run, "--device", "cpu"])
+    assert rc == 0 and "test/linear/vif_p" in ext and set(fit_logs) < set(ext)
+
+    (tmp_path / "jax").mkdir()
+    jrun = _train_run_config(tmp_path / "jax")
+    rc, jlogs = _run_json(jcli.main, ["fit", jrun, "--no-extended"])
+    print(f"port fit keys {sorted(fit_logs)}; JAX fit keys {sorted(jlogs)}")
+    assert rc == 0 and sorted(fit_logs) == sorted(jlogs)
+
+
+FIT_REFUSALS = {
+    "profile": (("--profile", "prof"), {}, "Queue 1 item 9"),
+    "images": ((), {"log_images_every_n_epochs": 1}, "Queue 1 item 9"),
+    "tpu": ((), {"accelerator": '"tpu"'}, "CUDA card or the CPU"),
+}
+
+
+@pytest.mark.parametrize("case", list(FIT_REFUSALS))
+def test_fit_refusals_exit_2(tmp_path, monkeypatch, caplog, case):
+    flags, trainer, message = FIT_REFUSALS[case]
+    run = _train_run_config(tmp_path, **trainer)
+    monkeypatch.chdir(tmp_path)
+    with caplog.at_level(logging.ERROR, logger="xmmsr"):
+        rc, _ = _run(tcli.main, ["fit", run, *flags, "--device", "cpu"])
+    assert rc == 2 and message in caplog.text
+    assert not (tmp_path / "ckpts/esr_gen/ckpts").exists() or not list(
+        (tmp_path / "ckpts/esr_gen/ckpts").glob("*.pt"))
+
+
+@pytest.mark.parametrize("cmd", ["fit", "test"])
+def test_fit_and_test_without_a_card_need_device_cpu(tmp_path, monkeypatch, caplog, cmd):
+    run = _train_run_config(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with caplog.at_level(logging.ERROR, logger="xmmsr"):
+        rc, _ = _run(tcli.main, [cmd, run])
+    assert rc == 2 and "no CUDA card" in caplog.text
+    args = tcli.build_parser().parse_args([cmd, "r.toml"])
+    assert args.device == "cuda:0" and args.no_extended is False

@@ -28,8 +28,11 @@ inside: each fused variant must equal, bit for bit, its plain composition
 
 Training and evaluation: the full-width model's 130 parameter gradients
 through K2 (the dense block's autograd route) against the CPU model's, in
-f32 within 1e-4 x max|g| and in bf16 finite; the inference-only kernels'
-refusal of a gradient; the metric collections on the card against float64
+f32 within 1e-4 x max|g| and in bf16 finite; K1's gradient route
+(`dense_block_s2d_train`) against autograd through the plain S2D block, in
+f32 and bf16; one S2D-route train step on the card against the CPU; a
+checkpoint round trip on the card; the inference-only kernels' refusal of
+a gradient; the metric collections on the card against float64
 on the CPU (1e-4 relative, FSIM 5e-4); the data module's loader on the card
 against the same loader on the CPU.
 """
@@ -910,3 +913,156 @@ def test_loader_on_the_card_matches_the_cpu_loader(cuda, tmp_path):
         for k in ("lr", "hr", "weight"):
             assert a[k].is_cuda
             np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dense_block_s2d_train_gradients_match_autograd_of_the_plain_s2d_block(cuda, dtype):
+    """K1's gradient route (K1 forward, backward recomputed at C = 32 in the
+    original domain in f32, in the S2D domain with bf16 convolutions in
+    bf16) against autograd through the plain S2D block on cuDNN (weights
+    moved by `s2d_conv_weights_torch`): the output within K1's tolerance;
+    the gradients of x4 and the ten original-domain parameters within 1e-4
+    x max|g| in f32 (TF32 off); in bf16 both against the f32 gradient, the
+    route within 1.5 x the plain block's bf16 autograd's error."""
+    from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d_train
+    from xmm_superres_denoise_torch.ops.space_to_depth import s2d, s2d_conv_weights_torch
+
+    x, raw = _block_inputs((2, 32, 40, 32), torch.float32, cuda, seed=21)
+    x4 = s2d(x).contiguous().to(dtype)
+    raw = [t.to(dtype) for t in raw]
+    cot = torch.randn(x4.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                      device=cuda).to(dtype)
+
+    def run(fn):
+        xs = x4.clone().requires_grad_()
+        ws = [t.clone().requires_grad_() for t in raw]
+        with true_f32():
+            y = fn(xs, *ws)
+            (y.float() * cot.float()).sum().backward()
+        return y.detach().float(), [xs.grad] + [w.grad for w in ws]
+
+    def plain(xs, *ws):
+        pairs = [s2d_conv_weights_torch(ws[i], ws[i + 1]) for i in range(0, 10, 2)]
+        return dense_block_s2d_reference(xs, [w for w, _ in pairs], [b for _, b in pairs])
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+
+    before = dense_block_s2d.launches
+    y1, g1 = run(dense_block_s2d_train)
+    assert dense_block_s2d.launches - before == 5
+    y2, g2 = run(plain)
+    out_err = float((y1 - y2).abs().max())
+    scale = float(y2.abs().max())
+    assert out_err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 4 * 2.0**-8 * scale)
+    assert all(g.dtype == dtype for g in g1)
+    if dtype == torch.float32:
+        worst = max(err(a, b) for a, b in zip(g1, g2))
+        print(f"dense_block_s2d_train f32: output max|diff| {out_err:.2e}; gradients largest "
+              f"max|diff|/max|g| {worst:.2e} (tol 1e-4)")
+        assert worst <= 1e-4
+        return
+    x4, raw = x4.float(), [t.float() for t in raw]
+    _, ref = run(plain)
+    route = max(err(a, b) for a, b in zip(g1, ref))
+    base = max(err(a, b) for a, b in zip(g2, ref))
+    print(f"dense_block_s2d_train bf16: output max|diff| {out_err:.2e}; largest max|g - g_f32| "
+          f"/ max|g_f32| {route:.2e}, the plain S2D block's bf16 autograd {base:.2e} (tol 1.5 x)")
+    assert route <= 1.5 * base
+
+
+@pytest.mark.gpu
+def test_s2d_train_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 train step of the full-width SR model (trained weights)
+    through the S2D training route on the model gradient test's input
+    (1, 64^2 -> 128^2, in the model's domain) and loss, on the card (K1
+    forward) and on the CPU: the loss within 1e-5 relative, every gradient
+    within 1e-4 x max|g| of its tensor (as `[grad]` holds the model; the
+    CPU's own gradients after a one-ulp input change are printed beside:
+    on a batch of 2 from `_grad_pair` that floor is 1.2e-4, a LeakyReLU
+    pre-activation within f32 noise of 0), and the parameters within 1e-3 x
+    lr where |g| >= 1e-3 x max|g| (Adam's first update is lr * sign(g)
+    there; below it a gradient difference can flip the sign)."""
+    from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_train_apply
+    from xmm_superres_denoise_torch.train import steps as ts
+
+    x, target = _grad_pair()
+    batch = {"lr": x, "hr": target}
+    loss = _grad_loss()
+    tx = ts.Tx(1e-4)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = GeneratorRRDB_SR()
+        model.load_state_dict(params_from_flax(PARAMS))
+        model.to(dev)
+        state = ts.TrainState.create(model, tx)
+        grad_step, apply_step = ts.make_accum_steps(make_s2d_train_apply(model), loss, tx)
+        before = dense_block_s2d.launches
+        with true_f32():
+            lsum, wsum = grad_step(state, {k: v.to(dev) for k, v in batch.items()})
+            grads = {n: (p.grad / wsum).cpu() for n, p in model.named_parameters()}
+            state, v = apply_step(state, lsum, wsum)
+        out[str(dev)] = (float(v), {n: p.detach().cpu() for n, p in model.named_parameters()},
+                         grads, dense_block_s2d.launches - before)
+    (v_cpu, p_cpu, g_cpu, _), (v_card, p_card, g_card, launches) = out["cpu"], out[str(cuda)]
+    g_err = max(float((g_card[n] - g_cpu[n]).abs().max() / g_cpu[n].abs().max()) for n in g_cpu)
+    model = GeneratorRRDB_SR()
+    model.load_state_dict(params_from_flax(PARAMS))
+    nudged = ts.make_accum_steps(make_s2d_train_apply(model), loss, tx)[0]
+    state = ts.TrainState.create(model, tx)
+    _, wsum = nudged(state, {"lr": torch.nextafter(x, x + 1), "hr": target})
+    floor = max(float((p.grad / wsum - g_cpu[n]).abs().max() / g_cpu[n].abs().max())
+                for n, p in model.named_parameters())
+    p_err = max(float(((p_card[n] - p_cpu[n]).abs()
+                       * (g_cpu[n].abs() >= 1e-3 * g_cpu[n].abs().max())).max()) for n in p_cpu)
+    print(f"S2D train step: loss card {v_card:.8f} vs CPU {v_cpu:.8f}; gradients largest "
+          f"max|diff|/max|g| {g_err:.2e} (tol 1e-4; the CPU's own after a one-ulp input change "
+          f"{floor:.2e}); params max|diff| {p_err:.2e} (tol 1e-7); "
+          f"K1 launches {launches}")
+    assert launches == 60 and abs(v_card - v_cpu) <= 1e-5 * abs(v_cpu)
+    assert g_err <= 1e-4 and p_err <= 1e-7
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A train step on the card, a checkpoint, a restore into a fresh state
+    on the card: bitwise the same parameters and Adam moments, and the same
+    next step (cuDNN deterministic)."""
+    from xmm_superres_denoise_torch.config.schema import LossCfg
+    from xmm_superres_denoise_torch.train import steps as ts
+    from xmm_superres_denoise_torch.train.checkpoints import CheckpointManager
+    from xmm_superres_denoise_torch.train.loss import create_loss
+
+    g = np.random.default_rng(23)
+    batches = [{"lr": torch.from_numpy(g.uniform(0, 1, (2, 32, 32, 1)).astype(np.float32)).to(cuda),
+                "hr": torch.from_numpy(g.uniform(0, 1, (2, 64, 64, 1)).astype(np.float32)).to(cuda)}
+               for _ in range(2)]
+    tx = ts.Tx(1e-4)
+    step = ts.make_train_step(ts.clamped_apply, create_loss(None, LossCfg(l1=1.0)), tx)
+
+    def state(seed):
+        model = GeneratorRRDB_SR()
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        return ts.TrainState.create(model.to(cuda), tx)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with true_f32():
+            a, _ = step(state(0), batches[0])
+            assert not all(torch.equal(p, q) for p, q in zip(a.module.parameters(),
+                                                             state(0).module.parameters()))
+            mgr = CheckpointManager(tmp_path / "run")
+            mgr.save(1, a, 0.5)
+            b, at = mgr.restore(state(1))
+            assert at == 1 and b.step == 1
+            assert all(torch.equal(p, q) for p, q in zip(a.module.parameters(),
+                                                         b.module.parameters()))
+            assert all(q.is_cuda for q in b.module.parameters())
+            a, la = step(a, batches[1])
+            b, lb = step(b, batches[1])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert torch.equal(la, lb)
+    assert all(torch.equal(p, q) for p, q in zip(a.module.parameters(), b.module.parameters()))

@@ -1,22 +1,32 @@
-"""Command line of the PyTorch port: the serving half.
+"""Command line of the PyTorch port.
 
+    python -m xmm_superres_denoise_torch.cli fit  <run_config.toml> [--no-extended]
+    python -m xmm_superres_denoise_torch.cli test <run_config.toml> [--no-extended]
     python -m xmm_superres_denoise_torch.cli infer --fits F --checkpoint C.npz --out DIR --run_config R
     python -m xmm_superres_denoise_torch.cli serve 'DIR/*.fits' --checkpoint C.npz --out DIR --run_config R
     python -m xmm_superres_denoise_torch.cli serve DIR --watch ... (a polling daemon)
     python -m xmm_superres_denoise_torch.cli http --checkpoint C.npz --run_config R [--port N]
 
-The port of the JAX package's `cli.py` subcommands `infer`, `serve` (with
-`--watch`) and `http`, with the same flags, the same JSON lines on standard
-output and the same run-config assembly (`load_run_config`). The engine runs
-on `--device`, `cuda:0` unless the caller asks for the CPU; without a card,
-a run that does not pass `--device cpu` fails. `--int8_scales` binds the
-calibrated int8 scales to the checkpoint with `utils/fingerprint.py`, whose
-digest is the JAX package's: one scales file serves both packages.
+The port of the JAX package's `cli.py` subcommands `fit`, `test`, `infer`,
+`serve` (with `--watch`) and `http`, with the same flags, the same JSON on
+standard output and the same run-config assembly (`load_run_config`).
+Everything runs on `--device`, `cuda:0` unless the caller asks for the
+CPU; without a card, a run that does not pass `--device cpu` fails.
 
-Refused with exit code 2 and a message: `--mesh_data` other than 0 (the
-port serves on one card), `--plot` (PNG plots are not ported), ONNX
-checkpoints (the ONNX importer is not ported) and orbax checkpoint
-directories (they need JAX); a checkpoint is an npz in the Flax layout.
+`fit` trains from the run config (`train/loop.py: Trainer`), then tests the
+best checkpoint as `test` does and prints the test metrics as strict JSON
+(null for an undefined metric); `test` only restores and tests. Under `torchrun` (one
+process per card) `fit` and `test` run data parallel: DDP, or FSDP2 when
+`trainer.mesh.fsdp` > 1; each process takes `cuda:<LOCAL_RANK>`.
+`--int8_scales` binds the calibrated int8 scales to the checkpoint with
+`utils/fingerprint.py`, whose digest is the JAX package's: one scales file
+serves both packages.
+
+Refused with exit code 2 and a message: `fit --profile` (the profiler
+hook is not ported), `--mesh_data` other than 0 (the port serves on one
+card), `--plot` (PNG plots are not ported), ONNX checkpoints (the ONNX
+importer is not ported) and orbax checkpoint directories (they need JAX);
+a serving checkpoint is an npz in the Flax layout.
 """
 
 from __future__ import annotations
@@ -70,6 +80,102 @@ def _device(args) -> torch.device:
             "to run on the CPU"
         )
     return device
+
+
+def _build_trainer(args):
+    """Run config -> data module, loss and `Trainer` on `--device` (or, in a
+    torchrun process group, on this process's card). Returns (trainer,
+    trainer config)."""
+    from .data.datamodule import XmmDataModule
+    from .ops.stretch import Normalizer
+    from .parallel.distributed import initialize_distributed
+    from .train.loop import Trainer
+    from .train.loss import create_loss
+
+    if getattr(args, "profile", None) is not None:
+        raise CliError(
+            "--profile: the profiler hook (utils/profiling.py) is not ported to the PyTorch "
+            "package (ROADMAP.md Queue 1 item 9, utilities)")
+    device = _device(args)
+    local_rank = initialize_distributed(device.type)
+    if local_rank is not None and device.type == "cuda":
+        device = torch.device("cuda", local_rank)
+    ds_cfg, m_cfg, t_cfg, sc_dict, l_cfg = load_run_config(args.run_config)
+    dm = XmmDataModule(ds_cfg, seed=t_cfg.seed, boring_size=ds_cfg.boring_size, device=device)
+    scaling_normalizers = [
+        Normalizer(
+            lr_max=ds_cfg.lr.clamp_max,
+            hr_max=ds_cfg.hr.clamp_max if ds_cfg.hr else ds_cfg.lr.clamp_max,
+            mode="linear",
+        )
+    ]
+    try:
+        trainer = Trainer(m_cfg, t_cfg, dm, create_loss(sc_dict, l_cfg), scaling_normalizers,
+                          device=device)
+    except (NotImplementedError, RuntimeError) as e:  # what the trainer refuses to run
+        raise CliError(str(e)) from e
+    return trainer, t_cfg
+
+
+def _snapshot_run_config(trainer, run_config: Path) -> None:
+    """Copy the run config next to the checkpoints, so a checkpoint
+    directory records which TOML produced it. A resume with an edited
+    config keeps the original and adds the edit as `run_config.<n>.toml`,
+    once."""
+    import shutil
+
+    dst = trainer.ckpt.root / "run_config.toml"
+    try:
+        src_bytes = Path(run_config).read_bytes()
+        if dst.exists() and dst.read_bytes() != src_bytes:
+            n = 1
+            while True:
+                sidecar = trainer.ckpt.root / f"run_config.{n}.toml"
+                if not sidecar.exists():
+                    break
+                if sidecar.read_bytes() == src_bytes:
+                    return  # this exact config is already on record
+                n += 1
+            dst = sidecar
+        if not dst.exists():
+            shutil.copyfile(run_config, dst)
+    except OSError as e:  # snapshotting must never block a fit
+        log.warning("run-config snapshot failed: %s", e)
+
+
+def _print_logs_json(logs) -> None:
+    """Strict JSON: an undefined metric (an empty test split, say) is
+    written as null, not as the non-standard NaN token."""
+    import math
+
+    clean = {k: (None if isinstance(v, float) and not math.isfinite(v) else v)
+             for k, v in logs.items()}
+    print(json.dumps(clean, indent=2))
+
+
+def cmd_fit(args) -> int:
+    from .parallel.distributed import is_primary
+
+    trainer, t_cfg = _build_trainer(args)
+    if is_primary():
+        _snapshot_run_config(trainer, args.run_config)
+    result = trainer.fit(seed=t_cfg.seed, resume=t_cfg.checkpoint_path is not None)
+    log.info("fit done: best val/loss %.5f at epoch %d", result.best_val_loss, result.best_step)
+    # test as `test` does, from a fresh data module: a composite dataset
+    # draws its AGN and background files from one generator in sample order,
+    # so after the fit's train and val passes the test split would hold
+    # other composites than a later `test` of the same checkpoint sees
+    return cmd_test(args)
+
+
+def cmd_test(args) -> int:
+    from .parallel.distributed import is_primary
+
+    trainer, _ = _build_trainer(args)
+    logs = trainer.test(extended=not args.no_extended)
+    if is_primary():
+        _print_logs_json(logs)
+    return 0
 
 
 def _check_serving_flags(args) -> None:
@@ -311,9 +417,21 @@ def _engine_flags(p: argparse.ArgumentParser) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The serving command line (testable without dispatch)."""
+    """The command line (testable without dispatch)."""
     parser = argparse.ArgumentParser(prog="xmmsr-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    for name in ("fit", "test"):
+        p = sub.add_parser(name, help=f"{name} a model from a run config")
+        p.add_argument("run_config", type=Path)
+        p.add_argument("--no-extended", action="store_true",
+                       help="test without the extended metric suite")
+        if name == "fit":
+            p.add_argument("--profile", type=Path, default=None, help="not ported: refused")
+        p.add_argument("--device", default="cuda:0",
+                       help="torch device (default cuda:0; cpu runs the kernels' plain "
+                            "versions; under torchrun each process takes cuda:<LOCAL_RANK>)")
+        p.set_defaults(func=cmd_fit if name == "fit" else cmd_test)
 
     p = sub.add_parser("infer", help="run SR/DN inference on a detxy FITS")
     p.add_argument("--fits", type=Path, required=True)

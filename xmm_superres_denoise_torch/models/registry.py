@@ -3,6 +3,7 @@
 The port of the JAX package's `models/registry.py` for the two RRDB
 models. The SR upscale count is derived from hr/lr resolution: the scale
 must be a power of two >= 2, one x2 PixelShuffle stage per factor of two.
+`memory_efficient` checkpoints each RRDB (`torch.utils.checkpoint`).
 """
 
 from __future__ import annotations
@@ -21,13 +22,6 @@ def build_model(
 ) -> nn.Module:
     name = BaseModels(config.name)
     m = config.model
-    if config.memory_efficient:
-        raise NotImplementedError(
-            "memory_efficient (activation checkpointing) is refused until the training "
-            "harness lands (ROADMAP.md Queue 1, training harness: torch.utils.checkpoint "
-            "per RRDB, on the dense block's autograd route, ops/dense_block.py "
-            "_DenseBlockFn, which already recomputes each block in its backward)"
-        )
 
     if name is BaseModels.ESR_GEN:
         up_scale = hr_shape[0] / lr_shape[0]
@@ -43,6 +37,7 @@ def build_model(
             num_filters=m.filters,
             num_res_blocks=m.residual_blocks,
             num_upsample=int(n_stages),
+            memory_efficient=config.memory_efficient,
         )
 
     if name is BaseModels.RRDB_DENOISE:
@@ -51,6 +46,7 @@ def build_model(
             out_channels=m.out_channels,
             num_filters=m.filters,
             num_res_blocks=m.residual_blocks,
+            memory_efficient=config.memory_efficient,
         )
 
     raise NotImplementedError(

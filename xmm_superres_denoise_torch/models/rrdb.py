@@ -18,6 +18,21 @@ the JAX layouts: activations are NHWC and the dense-block weights HWIO.
 * Initializers follow torch Conv2d defaults (U(+-1/sqrt(fan_in)), fan_in =
   in_ch*9) and the positive-bias init of `conv_last`, whose bound uses
   in_channels only.
+* Every layer casts its parameters to its input's dtype where it uses them
+  (a no-op when they match, as in serving). A bf16 input to an f32 model
+  is therefore the JAX package's mixed-precision training: parameters cast
+  to bf16 inside the differentiated function, every op of the forward in
+  bf16, f32 gradients for the f32 masters.
+* Two forward routes. The default runs the dense blocks at C = num_filters
+  (K2 on the card). `s2d=True` (`ops/s2d_forward.py:
+  make_s2d_train_apply`, the training route of `s2d_train`) moves the RRDB
+  chain into the 2x2 space-to-depth domain and runs each dense block on K1
+  at 4C through `dense_block_s2d_train`; the five outer convolutions stay
+  in the original domain, where the same function costs a quarter of the
+  multiply-adds.
+* `memory_efficient` checkpoints each RRDB (`torch.utils.checkpoint`,
+  the JAX package's `nn.remat(RRDB)`); the S2D route's `remat` checkpoints
+  each dense block instead (the JAX S2D apply's `jax.checkpoint`).
 
 Architecture:
   dense block: 5 convs with LeakyReLU(0.2), dense concats, out*0.2 + x
@@ -37,8 +52,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.dense_block import PackedBlock, dense_block, grad_needed, pack_weights
+from ..ops.dense_block_s2d import dense_block_s2d_train
 from ..ops.precision import lrelu, scalar_like
 
 Tensor = torch.Tensor
@@ -74,8 +91,16 @@ def conv3x3_nhwc(x: Tensor, w_oihw: Tensor, b: Tensor) -> Tensor:
 
 def conv_nhwc(conv: nn.Conv2d, x: Tensor) -> Tensor:
     """Apply a 3x3 SAME `nn.Conv2d` to an NHWC tensor, bias after the
-    convolution (`conv3x3_nhwc`)."""
-    return conv3x3_nhwc(x, conv.weight, conv.bias)
+    convolution (`conv3x3_nhwc`), its parameters cast to `x.dtype`."""
+    return conv3x3_nhwc(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))
+
+
+def _checkpointed(fn, *args):
+    """`fn(*args)`, its activations recomputed in the backward when a
+    gradient is being recorded (`torch.utils.checkpoint`, non-reentrant)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
@@ -136,6 +161,10 @@ class ResidualDenseBlock5C(nn.Module):
             setattr(self, f"conv{j}", DenseConv(nf + (j - 1) * gc, nf if j == 5 else gc))
         self._pack: Optional[PackedBlock] = None
         self._pack_key = None
+        # False under FSDP (`parallel/sharding.py`), whose all-gather makes
+        # fresh parameter tensors each forward: one can land at a freed
+        # address with a matching version, so the block packs every call
+        self.cache_pack = True
 
     def flat_params(self):
         """(w1, b1, ..., w5, b5) in `dense_block`'s argument order."""
@@ -145,30 +174,36 @@ class ResidualDenseBlock5C(nn.Module):
             out += [conv.weight, conv.bias]
         return out
 
-    def packed(self) -> PackedBlock:
-        """The parameters packed for the kernel in their own dtype, made at
-        the first call and again only after a parameter's version (an
-        in-place change such as `load_state_dict`), storage, dtype or device
-        changed. Parameters made inside `torch.inference_mode` keep no
-        version counter, so an in-place change cannot be seen: they are
-        packed on every call."""
+    def packed(self, dtype: Optional[torch.dtype] = None) -> PackedBlock:
+        """The parameters packed for the kernel in `dtype` (their own by
+        default), made at the first call and again only after a parameter's
+        version (an in-place change such as `load_state_dict`), storage,
+        dtype or device changed, or for another `dtype`. Parameters made
+        inside `torch.inference_mode` keep no version counter, so an in-place
+        change cannot be seen: they are packed on every call, as every block
+        is when `cache_pack` is off."""
         params = self.flat_params()
-        key = tuple(_pack_key(p) for p in params)
-        if None in key or key != self._pack_key:
+        dtype = dtype or params[0].dtype
+        key = (dtype, *(_pack_key(p) for p in params))
+        if not self.cache_pack or None in key or key != self._pack_key:
             with torch.no_grad():
-                self._pack = pack_weights(params[0::2], params[1::2], params[0].dtype)
+                self._pack = pack_weights(params[0::2], params[1::2], dtype)
             self._pack_key = key
         return self._pack
 
-    def forward(self, x: Tensor) -> Tensor:
-        """The block on `dense_block`: with the raw parameters when autograd
-        must see them (on the card, `dense_block`'s autograd route, K2
-        forward and a recomputed backward), with the cached pack otherwise."""
+    def forward(self, x: Tensor, s2d: bool = False) -> Tensor:
+        """The block on `dense_block`: with the raw parameters (cast to
+        `x.dtype`) when autograd must see them (on the card, `dense_block`'s
+        autograd route, K2 forward and a recomputed backward), with the
+        cached pack otherwise. `s2d=True`: `x` is the block input in the
+        S2D domain and the block runs on K1 (`dense_block_s2d_train`)."""
         x = x.contiguous()
         params = self.flat_params()
+        if s2d:
+            return dense_block_s2d_train(x, *[p.to(x.dtype) for p in params])
         if grad_needed(x, *params):
-            return dense_block(x, *params)
-        return dense_block(x, self.packed())
+            return dense_block(x, *[p.to(x.dtype) for p in params])
+        return dense_block(x, self.packed(x.dtype))
 
 
 class RRDB(nn.Module):
@@ -180,28 +215,47 @@ class RRDB(nn.Module):
         self.RDB2 = ResidualDenseBlock5C(nf, gc)
         self.RDB3 = ResidualDenseBlock5C(nf, gc)
 
-    def forward(self, x: Tensor) -> Tensor:
-        out = self.RDB3(self.RDB2(self.RDB1(x)))
+    def forward(self, x: Tensor, s2d: bool = False, remat: bool = False) -> Tensor:
+        """`s2d`: the dense blocks run in the S2D domain, each checkpointed
+        when `remat`."""
+        out = x
+        for rdb in (self.RDB1, self.RDB2, self.RDB3):
+            out = _checkpointed(rdb, out, s2d) if remat else rdb(out, s2d)
         return out * scalar_like(out, 0.2) + x
 
 
 class RRDBTrunk(nn.Module):
     """conv_first -> N x RRDB -> trunk_conv with long skip."""
 
-    def __init__(self, in_channels: int, num_filters: int, num_res_blocks: int):
+    def __init__(self, in_channels: int, num_filters: int, num_res_blocks: int,
+                 memory_efficient: bool = False):
         super().__init__()
         nf = num_filters
         self.conv_first = conv3x3(in_channels, nf)
         for i in range(num_res_blocks):
             setattr(self, f"rrdb_{i}", RRDB(nf, nf))
         self.num_res_blocks = num_res_blocks
+        self.memory_efficient = memory_efficient
         self.trunk_conv = conv3x3(nf, nf)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, s2d: bool = False, remat: bool = False) -> Tensor:
+        """`s2d`: the RRDB chain runs between one `pixel_unshuffle` and one
+        `pixel_shuffle` (the 2x2 space-to-depth and its inverse, with which
+        the residual adds commute), each dense block checkpointed when
+        `remat`; otherwise each RRDB is checkpointed when the trunk is
+        `memory_efficient`."""
         fea = conv_nhwc(self.conv_first, x)
-        t = fea
+        t = pixel_unshuffle(fea, 2) if s2d else fea
         for i in range(self.num_res_blocks):
-            t = getattr(self, f"rrdb_{i}")(t)
+            rrdb = getattr(self, f"rrdb_{i}")
+            if s2d:
+                t = rrdb(t, True, remat)
+            elif self.memory_efficient:
+                t = _checkpointed(rrdb, t)
+            else:
+                t = rrdb(t)
+        if s2d:
+            t = pixel_shuffle(t, 2)
         return fea + conv_nhwc(self.trunk_conv, t)
 
 
@@ -228,20 +282,22 @@ class GeneratorRRDB_SR(_Generator):
         num_filters: int = 32,
         num_res_blocks: int = 4,
         num_upsample: int = 1,
+        memory_efficient: bool = False,
     ):
         super().__init__()
         nf = num_filters
         self.num_filters = nf
         self.num_upsample = num_upsample
-        self.trunk = RRDBTrunk(in_channels, nf, num_res_blocks)
+        self.trunk = RRDBTrunk(in_channels, nf, num_res_blocks, memory_efficient)
         for i in range(num_upsample):
             setattr(self, f"upconv_{i}", conv3x3(nf, nf * 4))
         self.HRconv = conv3x3(nf, nf)
         self.conv_last = conv3x3(nf, out_channels)
         positive_bias_init_(self.conv_last.weight, self.conv_last.bias, nf)
 
-    def forward(self, x: Tensor) -> Tensor:
-        fea = self.trunk(x)
+    def forward(self, x: Tensor, s2d: bool = False, remat: bool = False) -> Tensor:
+        """NHWC in and out; `s2d` and `remat` as `RRDBTrunk.forward` takes them."""
+        fea = self.trunk(x, s2d, remat)
         for i in range(self.num_upsample):
             fea = conv_nhwc(getattr(self, f"upconv_{i}"), fea)
             fea = pixel_shuffle(lrelu(fea, 0.01), 2)
@@ -259,14 +315,16 @@ class GeneratorRRDB_DN(_Generator):
         out_channels: int = 1,
         num_filters: int = 32,
         num_res_blocks: int = 4,
+        memory_efficient: bool = False,
     ):
         super().__init__()
         nf = num_filters
         self.num_filters = nf
-        self.trunk = RRDBTrunk(in_channels, nf, num_res_blocks)
+        self.trunk = RRDBTrunk(in_channels, nf, num_res_blocks, memory_efficient)
         self.conv_last = conv3x3(nf, out_channels)
         positive_bias_init_(self.conv_last.weight, self.conv_last.bias, nf)
 
-    def forward(self, x: Tensor) -> Tensor:
-        out = conv_nhwc(self.conv_last, self.trunk(x)) + x
+    def forward(self, x: Tensor, s2d: bool = False, remat: bool = False) -> Tensor:
+        """NHWC in and out; `s2d` and `remat` as `RRDBTrunk.forward` takes them."""
+        out = conv_nhwc(self.conv_last, self.trunk(x, s2d, remat)) + x
         return torch.clamp(out, 0.0, 1.0)

@@ -211,6 +211,43 @@ def _launch(x: Tensor, packed: PackedBlock) -> Tensor:
     return launch_levels(x, packed.kernel, packed.biases, lib, "dense_block", level, dense_block)
 
 
+def cudnn_block(x: Tensor, *weights: Tensor) -> Tensor:
+    """The block as convolutions in `x`'s dtype (cuDNN on the card) on the
+    NHWC tensor's channels_last view, the HWIO weights laid out
+    channels_last. Unlike `dense_block_reference`, which convolves in f32
+    and rounds each level as the kernels do, it convolves bf16 in bf16 (f32
+    accumulation, bf16 out): the bf16 backward's recompute."""
+    xc = x.permute(0, 3, 1, 2)
+    feats, y = [xc], None
+    for k in range(5):
+        w = weights[2 * k].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(torch.cat(feats, 1), w, weights[2 * k + 1], padding=1)
+        if k < 4:
+            feats.append(F.leaky_relu(y, 0.2))
+    return (y * 0.2 + xc).permute(0, 2, 3, 1)
+
+
+def block_grads(x: Tensor, weights, needs, grad_out: Tensor) -> list:
+    """The backward of one block at `x` (NHWC, the ten HWIO parameters):
+    the gradients of x and the parameters that `needs` marks (None for the
+    others), by recomputing the block on detached copies and
+    differentiating it. f32 recomputes through `dense_block_reference`
+    under `true_f32` (TF32 cannot enter the parity class); bf16 as bf16
+    convolutions (`cudnn_block`), the faster route on the card: 10.5 ms
+    against 25.6 for the plain version per block at batch 8 (PERF.md,
+    PR 12)."""
+    if x.dtype == torch.float32:
+        fn, precision = dense_block_reference, true_f32()
+    else:
+        fn, precision = cudnn_block, contextlib.nullcontext()
+    inputs = [t.detach().requires_grad_(need) for t, need in zip((x, *weights), needs)]
+    with torch.enable_grad(), precision:
+        y = fn(*inputs)
+        wanted = [t for t, need in zip(inputs, needs) if need]
+        grads = iter(torch.autograd.grad(y, wanted, grad_out))
+    return [next(grads) if need else None for need in needs]
+
+
 class _DenseBlockFn(torch.autograd.Function):
     """The block as one autograd node: forward on K2, backward recomputed.
 
@@ -218,13 +255,12 @@ class _DenseBlockFn(torch.autograd.Function):
     `x`'s dtype), so that autograd sees them. The forward packs them
     (`pack_weights`) and launches K2's five levels on a CUDA input (the
     plain version on a CPU one); it keeps only `x` and the parameters. The
-    backward runs the block again through `dense_block_reference` on
-    detached copies (cuDNN convolutions on the card, under `true_f32` in
-    f32 so that TF32 cannot enter) and returns `torch.autograd.grad` of it.
+    backward is `block_grads`: the block run again on detached copies and
+    differentiated.
 
     The JAX package differentiates Flax convolutions through the whole
     model and has no backward kernel to port (no backward Pallas kernel and
-    no `custom_vjp`), so the backward is the plain composition's autograd.
+    no `custom_vjp`), so the backward is a plain composition's autograd.
     Recomputing the block instead of storing its four intermediate
     activations is per-block activation checkpointing: a step holds one
     (B, H, W, C) input per block, not its (B, H, W, 5C) concat."""
@@ -240,14 +276,7 @@ class _DenseBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out: Tensor):
         x, *weights = ctx.saved_tensors
-        needs = ctx.needs_input_grad
-        inputs = [t.detach().requires_grad_(need) for t, need in zip((x, *weights), needs)]
-        precision = true_f32() if x.dtype == torch.float32 else contextlib.nullcontext()
-        with torch.enable_grad(), precision:
-            y = dense_block_reference(*inputs)
-            wanted = [t for t, need in zip(inputs, needs) if need]
-            grads = iter(torch.autograd.grad(y, wanted, grad_out))
-        return tuple(next(grads) if need else None for need in needs)
+        return tuple(block_grads(x, weights, ctx.needs_input_grad, grad_out))
 
 
 def dense_block(x: Tensor, *weights) -> Tensor:

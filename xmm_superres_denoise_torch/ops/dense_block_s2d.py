@@ -29,9 +29,14 @@ input, HWIO weights cast to the input's dtype, f32 accumulation, output
 * `dense_block_s2d_reference` is the plain version: the gather form, f32
   convolutions, each level rounded to `x.dtype` as the kernel stores it.
 * `dense_block_s2d.launches` counts kernel launches (five per call).
-* K1 serves inference only: with grad enabled and an input that requires
-  grad it raises `RuntimeError` (`refuse_grad`) on every device, rather than
-  return a tensor without a `grad_fn`.
+* `dense_block_s2d` serves inference only: with grad enabled and an input
+  that requires grad it raises `RuntimeError` (`refuse_grad`) on every
+  device, rather than return a tensor without a `grad_fn`.
+* `dense_block_s2d_train(x4, w1, b1, ..., w5, b5)` is K1's gradient route,
+  the forward of the S2D training route (`models/rrdb.py`, `s2d=True`):
+  it takes the block's ten parameters in the ORIGINAL domain (HWIO, C/4
+  channels) and runs as one autograd node, `_DenseBlockS2DFn` (K1 forward,
+  backward recomputed in the original domain).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 from . import cuda_build
 from .dense_block import (  # noqa: F401  (PackedBlock, pack_weights: re-exported)
     PackedBlock,
+    block_grads,
     check_packed,
     dense_block_reference,
     refuse_grad,
@@ -50,6 +56,7 @@ from .dense_block import (  # noqa: F401  (PackedBlock, pack_weights: re-exporte
     level_kernel,
     pack_weights,
 )
+from .precision import true_f32
 
 Tensor = torch.Tensor
 
@@ -102,6 +109,11 @@ def dense_block_s2d(
     else:
         refuse_grad("dense_block_s2d", x, *weights, *biases)
         packed = pack_weights(weights, biases, x.dtype)
+    return _run(x, packed)
+
+
+def _run(x: Tensor, packed: PackedBlock) -> Tensor:
+    """K1 on a CUDA input (or raise), the plain version on a CPU one."""
     if x.device.type == "cpu":
         return dense_block_s2d_reference(x, packed.hwio, packed.biases)
     if x.device.type != "cuda":
@@ -117,3 +129,69 @@ def dense_block_s2d(
 
 
 dense_block_s2d.launches = 0
+
+
+def _s2d_pack(x4: Tensor, raw: Sequence[Tensor]) -> PackedBlock:
+    """The block's ten original-domain parameters moved into the S2D domain
+    (`s2d_conv_weights_torch`, an einsum against a 0/1 tensor: each entry is
+    one weight times 1, exact in any dtype once TF32 is off) and packed for
+    K1 in `x4`'s dtype."""
+    from .space_to_depth import s2d_conv_weights_torch
+
+    with true_f32():
+        pairs = [s2d_conv_weights_torch(raw[i], raw[i + 1]) for i in range(0, 10, 2)]
+    return pack_weights([w for w, _ in pairs], [b for _, b in pairs], x4.dtype)
+
+
+class _DenseBlockS2DFn(torch.autograd.Function):
+    """K1 as one autograd node of the ORIGINAL block's parameters.
+
+    `apply(x4, w1, b1, ..., w5, b5)`: `x4` is the S2D-domain input (B, H/2,
+    W/2, 4C), the ten tensors the block's original-domain parameters (HWIO,
+    C channels, of `x4`'s dtype). The forward transforms and packs them
+    (`_s2d_pack`) and launches K1 (the plain version on the CPU); it keeps
+    only `x4` and the parameters.
+
+    The backward works in the original domain: the S2D block is the
+    original block conjugated by `s2d` (`ops/space_to_depth.py`), so with
+    x = d2s(x4) and g = d2s(grad_out) the gradients are those of the
+    original block at x against g (`block_grads`, `_DenseBlockFn`'s
+    backward: the plain version under `true_f32` in f32, bf16 convolutions
+    in bf16), and the input's is moved back by `s2d`. The parameters'
+    gradients come back directly. The JAX package differentiates its S2D
+    apply through the weight transform with convolutions at 4C; the
+    gradients are the same function's, and on the card the original domain
+    is the faster route in both dtypes (PERF.md, PR 12)."""
+
+    @staticmethod
+    def forward(ctx, x4: Tensor, *raw: Tensor) -> Tensor:
+        ctx.save_for_backward(x4, *raw)
+        return _run(x4, _s2d_pack(x4, raw))
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        from .space_to_depth import d2s, s2d
+
+        x4, *raw = ctx.saved_tensors
+        grads = block_grads(d2s(x4).contiguous(), raw, ctx.needs_input_grad,
+                            d2s(grad_out).contiguous())
+        if grads[0] is not None:
+            grads[0] = s2d(grads[0]).contiguous()
+        return tuple(grads)
+
+
+def dense_block_s2d_train(x4: Tensor, *raw: Tensor) -> Tensor:
+    """One dense block in the S2D domain on K1, differentiable with respect
+    to `x4` and the ten original-domain parameters (`_DenseBlockS2DFn`).
+    `x4` is (B, H, W, 4C) NHWC; `raw` is (w1, b1, ..., w5, b5), HWIO with
+    C channels, of `x4`'s dtype. A CUDA input launches K1 (or raises), a
+    CPU input runs the plain version."""
+    if len(raw) != 10:
+        raise TypeError("dense_block_s2d_train takes ten original-domain parameters")
+    if x4.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dense_block_s2d_train runs on cuda or cpu, got {x4.device}")
+    c = raw[-1].shape[0]
+    if x4.dim() != 4 or x4.shape[-1] != 4 * c:
+        raise ValueError(f"dense_block_s2d_train: x4 {tuple(x4.shape)} is not the S2D form of "
+                         f"a {c}-channel block input")
+    return _DenseBlockS2DFn.apply(x4.contiguous(), *raw)

@@ -16,7 +16,12 @@ FLOPs rather than 16x at S2D^2), and a last `d2s` gives the 832^2 output.
 
 `params` is the Flax-layout tree (any source `utils.weights.flax_tree`
 takes); weights are transformed in f32 numpy and only then cast to the
-forward's dtype. `make_s2d_train_apply` belongs to the training slice.
+forward's dtype.
+
+`make_s2d_train_apply` is the training route (`model.s2d_train`): the
+model's own forward with its RRDB chain in the S2D domain, each dense block
+on K1 through `dense_block_s2d_train` (gradients recomputed in the original
+domain); see `models/rrdb.py`.
 """
 
 from __future__ import annotations
@@ -143,3 +148,30 @@ def make_s2d_dn_forward(model: GeneratorRRDB_DN, params, dtype=torch.bfloat16, d
         return torch.clamp(d2s(out), 0.0, 1.0)
 
     return _maybe_true_f32(forward, dtype)
+
+
+def make_s2d_train_apply(model, remat: bool = False):
+    """`apply(module, x)` equal to the model's forward (which clips to
+    [0, 1], once, as the JAX S2D apply does), differentiable with respect
+    to the model's own parameters, with the RRDB chain in the S2D domain:
+    each dense block runs on K1 (`ops/dense_block_s2d.py:
+    dense_block_s2d_train`, one autograd node whose backward recomputes
+    the block in the original domain, so the gradients are exact). The
+    five outer convolutions run in the original domain: the same function
+    as JAX's S2D-domain convolutions, with a quarter of the multiply-adds.
+
+    `module` is `model` or a wrapping of it (DDP, or `model` under FSDP);
+    `remat=True` checkpoints each dense block (`memory_efficient`). Supports
+    GeneratorRRDB_SR with num_upsample == 1 and GeneratorRRDB_DN, as the
+    JAX version does."""
+    if isinstance(model, GeneratorRRDB_SR):
+        if model.num_upsample != 1:
+            raise ValueError(f"the S2D apply is built for num_upsample == 1, got "
+                             f"{model.num_upsample}")
+    elif not isinstance(model, GeneratorRRDB_DN):
+        raise TypeError(f"the S2D apply takes the RRDB generators, got {type(model).__name__}")
+
+    def apply(module, x: Tensor) -> Tensor:
+        return module(x, s2d=True, remat=remat)
+
+    return apply

@@ -1,0 +1,8 @@
+from .distributed import initialize_distributed, is_primary
+from .mesh import DATA_AXIS, FSDP_AXIS, make_mesh, mesh_shape
+from .sharding import shard_fsdp, wrap_ddp
+
+__all__ = [
+    "DATA_AXIS", "FSDP_AXIS", "initialize_distributed", "is_primary", "make_mesh",
+    "mesh_shape", "shard_fsdp", "wrap_ddp",
+]

@@ -23,6 +23,10 @@ package's S2D and int8 builders read.
 `load_params_npz` reads from an npz checkpoint the arrays a given generator
 has, as the JAX package's loader fills its model's template (a DN model
 takes an SR checkpoint's trunk and conv_last and leaves its upsampler).
+`save_params_npz` is the reverse of `params_from_flax`: it writes a
+generator's state_dict as an npz in the Flax key layout (`params/...`,
+HWIO kernels), which this module, the port's CLI and the JAX package's
+`load_params_npz` read.
 """
 
 from __future__ import annotations
@@ -125,6 +129,14 @@ def load_params_npz(path: Union[str, Path], model: torch.nn.Module) -> Dict[str,
                 raise ValueError(f"{key}: shape {arr.shape} != the model's {shape}")
             out[key] = np.asarray(arr, np.float32)
     return out
+
+
+def save_params_npz(path: Union[str, Path], state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Write a generator state_dict as an npz in the Flax key layout."""
+    flat = _flatten(flax_tree(state_dict))
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{f"params/{k}": v for k, v in flat.items()})
 
 
 def flax_tree(src) -> Dict:
