@@ -95,6 +95,21 @@ Phases, each printing its result and its seconds:
    for int8 also its elementwise launches per batch and K3's time against
    the forward's int8 operations at the published peak.
 
+15. zoo: the transformer zoo's five shipped run configs (swinir_sr,
+   swinfir_sr, drct_sr_fsdp, hat_sr, restormer_denoise) at full width with
+   seeded weights, each written as a Flax-layout npz (`layers_scan` for HAT
+   and DRCT) and the 4 files served through `cli serve` in f32 and bf16;
+   the raw output on the card in f32 (TF32 off) held to the CPU's f32
+   forward of the same weights at 52^2 (SwinIR, SwinFIR, DRCT) or 64^2
+   (HAT, Restormer), 1e-4 x max(1, max|CPU|); bf16 held to f32 at 416^2,
+   20 log10(max|f32| / RMS(bf16 - f32)) >= 30 dB; engine ms per image in
+   f32 and bf16 (CUDA events), peak memory, FLOPs per image and their
+   bound, a traced forward of each by kernel group; then `cli fit` of
+   swinir_sr at full width (batch 2, memory_efficient, one epoch of 8 steps
+   on a 20-name synthetic tree, each step timed) and `cli test` of its best
+   checkpoint, bitwise equal to the fit's test. The zoo adds no kernel:
+   its attention, LayerNorm, FFT and convolutions are PyTorch's ops.
+
 The last two lines are a `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
 card it exits non-zero at once and prints no result. All products go to a
@@ -124,7 +139,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-DEADLINE_S = 900  # the whole run; the watchdog exits non-zero past it
+DEADLINE_S = 1100  # the whole run; the watchdog exits non-zero past it
 SERVE_FILES = 4
 SERVE_BATCH = 2
 NATIVE_HW = (411, 403)  # numpy (NAXIS2, NAXIS1) of an EPIC-pn detxy image
@@ -1722,6 +1737,7 @@ def _timed_fit(argv, epochs: int) -> tuple:
         part = log[e * per:(e + 1) * per]
         warm = part[1:] if e == 0 and len(part) > 1 else part  # the first step builds and warms
         rows.append({"steps": len(part), "ms": sum(t for t, _, _ in warm) / len(warm),
+                     "each": [t for t, _, _ in part],
                      "k1": sorted({a for _, a, _ in part}), "k2": sorted({b for _, _, b in part})})
     return rc, logs, rows
 
@@ -1924,6 +1940,254 @@ def phase_profile(ctx) -> None:
         )
 
 
+# [zoo]: the transformer zoo's five shipped run configs at full width, seeded weights
+ZOO_RUNS = ("swinir_sr", "swinfir_sr", "drct_sr_fsdp", "hat_sr", "restormer_denoise")
+# card vs CPU f32 at a size the CPU forwards in seconds: four windows of 13
+# (SwinIR, SwinFIR, DRCT); windows of 16 and three 2x downsamples (HAT, Restormer)
+ZOO_CHECK_PX = {"swinir": 52, "swinfir": 52, "drct": 52, "hat": 64, "restormer": 64}
+ZOO_F32_RTOL = 1e-4  # card f32 vs CPU f32 raw output, x max(1, max|CPU|)
+ZOO_BF16_DB = 30.0  # card bf16 vs card f32 at 416^2: 20 log10(max|f32| / RMS(bf16 - f32))
+ZOO_TIMED = 2  # warm batches timed per mode
+ZOO_FIT_BASE_NAMES = 20  # 16 train names: 8 steps at swinir_sr's batch of 2
+ZOO_GROUPS = ("GEMM (cuBLAS)", "convolution (cuDNN)", "softmax", "LayerNorm", "FFT",
+              "elementwise, copies and the rest")
+
+
+def _zoo_group(name: str) -> str:
+    """The kernel group of a device kernel in a zoo forward."""
+    low = name.lower()
+    if "fft" in low:
+        return ZOO_GROUPS[4]
+    if any(k in low for k in ("conv", "cudnn", "fprop", "implicit", "im2col", "depthwise")):
+        return ZOO_GROUPS[1]
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "sm90", "cublas", "gemv")):
+        return ZOO_GROUPS[0]
+    if "softmax" in low:
+        return ZOO_GROUPS[2]
+    if "layer_norm" in low or "layernorm" in low:
+        return ZOO_GROUPS[3]
+    return ZOO_GROUPS[5]
+
+
+def _zoo_flops(model, hw: int) -> float:
+    """FLOPs (2 per multiply-add) of one forward at (1, hw, hw, 1), counted
+    by torch's FlopCounterMode on the meta device: matmuls and convolutions
+    (FFTs, softmax and elementwise work are not counted); NaN when a meta
+    kernel is missing."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    try:
+        meta = copy.deepcopy(model).to("meta")
+        with FlopCounterMode(display=False) as counter, torch.no_grad():
+            meta(torch.empty(1, hw, hw, 1, device="meta"))
+        return float(counter.get_total_flops())
+    except Exception as e:  # the count is a report, not a check
+        say(f"[zoo]   FLOPs not counted: {type(e).__name__}: {e}")
+        return float("nan")
+
+
+def _zoo_profile(fwd, x) -> str:
+    """One warm call of `fwd`, then one traced: device busy ms per image,
+    idle share of the kernels' span and busy time by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fwd(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fwd(x)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return "the profiler saw no CUDA kernel"
+    groups: dict = {}
+    for e in kernels:
+        g = groups.setdefault(_zoo_group(e.name), [0.0, 0])
+        g[0] += e.time_range.elapsed_us()
+        g[1] += 1
+    busy = sum(us for us, _ in groups.values())
+    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    n = x.shape[0]
+    parts = ", ".join(f"{g} {us / 1e3 / n:.3f} ms ({k})"
+                      for g, (us, k) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
+    return (f"device busy {busy / 1e3 / n:.3f} ms/image, idle {1 - busy / span:.1%}; {parts}")
+
+
+def _events_ms(fn, x, iters: int) -> float:
+    """Mean CUDA-event ms of `fn(x)` over `iters` warm calls."""
+    with torch.inference_mode():
+        fn(x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(x)
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_zoo(tmp: Path) -> None:
+    """The transformer zoo on the card: for each shipped run config, the
+    model at full width with seeded weights written as a Flax-layout npz
+    (`layers_scan` for HAT and DRCT), the 4 detxy files served through `cli
+    serve` in f32 and bf16, the raw output (before the engine's clip) held
+    to the CPU's f32 forward of the same weights at a small size, bf16 held
+    to f32 at 416^2 in dB, engine ms per image (CUDA events), peak memory
+    and a traced bf16 and f32 forward; then `cli fit` / `test` of swinir_sr."""
+    from xmm_superres_denoise_torch.cli import load_run_config
+    from xmm_superres_denoise_torch.infer.run_file import InferenceEngine, load_rate_image
+    from xmm_superres_denoise_torch.models.registry import build_model
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.utils.weights import (
+        load_params_npz,
+        params_from_flax,
+        save_params_npz,
+    )
+
+    t_all = time.perf_counter()
+    files = _write_inputs(tmp)
+    raw = np.stack([load_rate_image(f)[0] for f in files])
+    for i, run in enumerate(ZOO_RUNS):
+        t0 = time.perf_counter()
+        path = ROOT / "res/configs/runs" / f"{run}.toml"
+        ds, mc, *_ = load_run_config(path)
+        name = mc.name.value
+        lr = (ds.lr.res, ds.lr.res)
+        hr = (ds.hr.res, ds.hr.res) if ds.hr else lr
+        model = build_model(mc, lr, hr)
+        model.reset_parameters(torch.Generator().manual_seed(100 + i))
+        npz = tmp / f"{run}.npz"
+        save_params_npz(npz, model)  # the scanned layout where the run config sets scan_layers
+        state = params_from_flax(load_params_npz(npz, model), model)
+        flops = _zoo_flops(model, lr[0])
+        n_params = sum(p.numel() for p in model.parameters())
+
+        served = {}
+        for mode, flags in (("f32", []), ("bf16", ["--bf16"])):
+            rc, listing, secs = _cli(["serve", *files, "--out", tmp / f"{run}_{mode}",
+                                      "--run_config", path, "--checkpoint", npz,
+                                      "--batch", SERVE_BATCH, *flags])
+            if rc != 0 or len(listing) != SERVE_FILES:
+                raise AssertionError(f"[zoo] {run}: cli serve {mode} exited {rc}")
+            preds = _served(listing)
+            if preds.shape[1:] != hr or not np.isfinite(preds).all():
+                raise AssertionError(f"[zoo] {run} {mode}: products {preds.shape}, finite "
+                                     f"{np.isfinite(preds).all()}")
+            served[mode] = secs
+
+        engines = {"f32": InferenceEngine(mc, ds, state, dtype=torch.float32),
+                   "bf16": InferenceEngine(mc, ds, state, dtype=torch.bfloat16)}
+        x = engines["f32"].prepare(torch.from_numpy(raw[:SERVE_BATCH]).to("cuda:0"))
+        with torch.inference_mode():
+            with true_f32():
+                y32 = engines["f32"].model(x).float()
+            y16 = engines["bf16"].model(x.bfloat16()).float()
+        rms = float(torch.sqrt(torch.mean((y16 - y32) ** 2)))
+        db = 20 * math.log10(float(y32.abs().max()) / max(rms, 1e-30))
+
+        px = ZOO_CHECK_PX[name]
+        xs = x[:1, :px, :px].contiguous()
+        with torch.inference_mode(), true_f32():
+            card = engines["f32"].model(xs).float().cpu()
+        cpu_model = build_model(mc, lr, hr)
+        cpu_model.load_state_dict(state)
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            ref = cpu_model.eval()(xs.cpu())
+        cpu_s = time.perf_counter() - t1
+        err = float((card - ref).abs().max())
+        tol = ZOO_F32_RTOL * max(1.0, float(ref.abs().max()))
+
+        ms, peak, traces = {}, {}, {}
+        for mode, engine in engines.items():
+            torch.cuda.reset_peak_memory_stats()
+            ms[mode] = _events_ms(engine.predict, x, ZOO_TIMED) / SERVE_BATCH
+            peak[mode] = torch.cuda.max_memory_allocated() / 2**30
+            traces[mode] = _zoo_profile(engine.predict, x)
+        bound = {m: flops / PEAK_FLOPS[dt] * 1e3
+                 for m, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        say(f"[zoo] {run}: {type(model).__name__} at full width ({n_params} parameters, "
+            f"scan_layers {mc.scan_layers}), {lr[0]}^2 -> {hr[0]}^2; cli serve of "
+            f"{SERVE_FILES} files: f32 {served['f32']:.2f} s, bf16 {served['bf16']:.2f} s "
+            f"(each incl. the engine's build, the npz read and FITS I/O); engine ms/image "
+            f"(CUDA events, batch {SERVE_BATCH}, warm): f32 {ms['f32']:.2f}, bf16 "
+            f"{ms['bf16']:.2f}; peak memory f32 {peak['f32']:.2f} GiB, bf16 "
+            f"{peak['bf16']:.2f} GiB; {flops / 1e12:.3f} TFLOP per image (matmuls and "
+            f"convolutions), bound f32 {bound['f32']:.2f} ms, bf16 {bound['bf16']:.2f} ms; card "
+            f"f32 vs CPU f32 at {px}^2: max|diff| {err:.3e} (tol {tol:.1e}; CPU {cpu_s:.1f} s); "
+            f"bf16 vs f32 at {lr[0]}^2: {db:.2f} dB (min {ZOO_BF16_DB}) "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for mode in ("f32", "bf16"):
+            say(f"[zoo]   {run} {mode} trace: {traces[mode]}")
+        if not (err <= tol and db >= ZOO_BF16_DB and torch.isfinite(y32).all()
+                and torch.isfinite(y16).all()):
+            raise AssertionError(f"[zoo] {run}: card vs CPU {err} (tol {tol}), bf16 {db} dB")
+        del engines, model, cpu_model, x, y32, y16
+        torch.cuda.empty_cache()
+    _zoo_fit(tmp)
+    say(f"[zoo] ({time.perf_counter() - t_all:.2f} s)")
+
+
+def _zoo_fit(tmp: Path) -> None:
+    """`cli fit` of swinir_sr.toml at full width (batch 2 and
+    memory_efficient as shipped, f32) for one epoch of 8 steps on a 20-name
+    synthetic tree, each step timed with CUDA events; finite losses,
+    parameters moved from the seeded init, and `cli test` of the best
+    checkpoint bitwise equal to the fit's test."""
+    from xmm_superres_denoise_torch.cli import load_run_config
+    from xmm_superres_denoise_torch.data.synthetic import write_sim_tree
+    from xmm_superres_denoise_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    path = ROOT / "res/configs/runs/swinir_sr.toml"
+    ds, mc, tc, *_ = load_run_config(path)
+    root = write_sim_tree(tmp / "zoo_data", name=ds.name, n_base=ZOO_FIT_BASE_NAMES,
+                          res_mult=ds.res_mult, lr_exp=ds.lr.exps[0], hr_exp=ds.hr.exp,
+                          variants=1, seed=8)
+    text = path.read_text()
+    text = re.sub(r"^epochs = .*$", "epochs = 1", text, count=1, flags=re.M)
+    text = re.sub(r"^checkpoint_root = .*$", f'checkpoint_root = "{tmp / "zoo_fit"}"', text,
+                  count=1, flags=re.M)
+    text = re.sub(r"^directory = .*$", f'directory = "{root}"', text, count=1, flags=re.M)
+    run = tmp / "swinir_fit.toml"
+    run.write_text(text)
+    with contextlib.chdir(tmp):  # the data module writes its splits under ./res/splits
+        torch.cuda.reset_peak_memory_stats()
+        rc, fit_logs, (row,) = _timed_fit(["fit", run], 1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fit_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[zoo] cli fit swinir_sr exited {rc}")
+        ckroot = tmp / "zoo_fit" / "swinir"
+        history = [json.loads(line)
+                   for line in (ckroot / "history.jsonl").read_text().splitlines()]
+        init = build_model(mc, (ds.lr.res,) * 2, (ds.hr.res,) * 2)
+        init.reset_parameters(torch.Generator().manual_seed(tc.seed))  # the Trainer's init
+        trained = torch.load(ckroot / "ckpts" / "1.pt", map_location="cpu",
+                             weights_only=True)["model"]
+        moved = sum(not torch.equal(t, trained[k]) for k, t in init.state_dict().items())
+        t1 = time.perf_counter()
+        rc_test, test_logs = _cli_json(["test", run])
+        test_s = time.perf_counter() - t1
+    bad = [k for k, v in fit_logs.items() if v is None or not math.isfinite(v)]
+    losses = [(h["train/loss"], h["val/loss"]) for h in history]
+    say(f"[zoo] cli fit swinir_sr (full width, batch {ds.batch_size}, memory_efficient "
+        f"{mc.memory_efficient}, f32): {row['steps']} steps, ms per train step (CUDA events) "
+        f"{', '.join(f'{t:.1f}' for t in row['each'])} (warm mean {row['ms']:.1f}); train/loss, "
+        f"val/loss {losses}; {moved} of {len(trained)} parameter arrays moved; peak memory "
+        f"{peak:.2f} GiB; fit {fit_s:.1f} s; cli test rc {rc_test} in {test_s:.1f} s, "
+        f"{len(test_logs or {})} metrics, bitwise equal to the fit's test: "
+        f"{test_logs == fit_logs}; test/loss {fit_logs['test/loss']:.6f}, non-finite {bad}")
+    if not (rc_test == 0 and test_logs == fit_logs and not bad and len(history) == 1
+            and 0 < row["steps"] <= 8 and moved == len(trained)
+            and all(math.isfinite(v) for pair in losses for v in pair)):
+        raise AssertionError(f"[zoo] fit/test: row {row}, history {history}, moved {moved}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a card", file=sys.stderr)
@@ -1949,6 +2213,8 @@ def main() -> int:
         phase_grad(ctx)
         phase_train_routes()
         phase_profile(ctx)
+        with tempfile.TemporaryDirectory(prefix="xmmsr_chip_zoo_") as tmp:
+            phase_zoo(Path(tmp))
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
         s2d_f32["launches"] = s2d_launches["s2d f32"]

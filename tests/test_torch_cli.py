@@ -247,7 +247,7 @@ REFUSALS = {
     "unmatched-pattern": (lambda tmp, tp: [tmp / "det*.fist"], (), "no input files matched"),
     "mesh_data": (lambda tmp, tp: [tmp / "det0.fits"], ("--mesh_data", 2), "one card"),
     "plot": (lambda tmp, tp: [tmp / "det0.fits"], ("--plot",), "--plot"),
-    "onnx": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ONNX"), "Queue 1 item 10"),
+    "onnx": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ONNX"), "Queue 1 item 7"),
     "orbax": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ORBAX"), "needs JAX"),
 }
 

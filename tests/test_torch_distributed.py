@@ -9,14 +9,17 @@ padded row weighted 0).
 * FSDP2 (`shard_fsdp`, the model route, clipped below the gradient norm
   so the clip's global norm spans the shards), on a 1 x 2 mesh and, in
   four processes, as HSDP on a 2 x 2 (data x fsdp) mesh: one step equals
-  it too.
+  it too. The same on a 1 x 2 mesh for a tiny DRCT (each Swin block a
+  unit of its own, `memory_efficient` checkpoints inside them, as
+  `drct_sr_fsdp.toml` trains).
 * Eval after that FSDP step (under `no_grad` the dense blocks run from a
   kernel pack, which FSDP must not leave stale) equals the one-process eval
   of the stepped model, and eval before it the eval of the initial one.
 * The eval step's `group` all-reduce with the core collections (psnr,
   ssim, l1, l2 and the mean-style poisson) gives the one-process states.
 
-The esr_gen generator at 4 filters, 1 RRDB, 16^2 -> 32^2, seeded; the
+The esr_gen generator at 4 filters, 1 RRDB, 16^2 -> 32^2, seeded (the
+DRCT at embed 12, one group of 5 blocks, window 4, seeded); the
 parameters after the step to 1e-3 x lr (entries with |g| < 1e-6 in the
 one-process step left out, as in `test_torch_train_step.py`), the losses
 and the eval states to 1e-6 relative.
@@ -37,6 +40,7 @@ from _torch_train_common import batch, to_torch
 from xmm_superres_denoise_torch.config.schema import LossCfg
 from xmm_superres_denoise_torch.data.datamodule import pad_batch
 from xmm_superres_denoise_torch.metrics.collection import XMMMetricCollection
+from xmm_superres_denoise_torch.models.drct import DRCT
 from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_SR
 from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_train_apply
 from xmm_superres_denoise_torch.ops.stretch import Normalizer
@@ -49,8 +53,13 @@ PARAM_ATOL, RTOL, TINY_G = 1e-3 * LR, 1e-6, 1e-6
 NAMES = ("psnr", "ssim", "l1", "l2", "poisson")
 
 
-def _model():
-    model = GeneratorRRDB_SR(num_filters=4, num_res_blocks=1)
+def _model(mode="fsdp"):
+    if mode == "fsdp-drct":
+        model = DRCT(img_size=16, patch_size=4, in_chans=1, embed_dim=12, depths=(1,),
+                     num_heads=(2,), window_size=4, mlp_ratio=2.0, gc=6, num_feat=8,
+                     use_checkpoint=True)
+    else:
+        model = GeneratorRRDB_SR(num_filters=4, num_res_blocks=1)
     # seed 1: its outputs on this batch lie inside (0, 1), so the clamp passes gradients
     model.reset_parameters(torch.Generator().manual_seed(1))
     return model
@@ -78,7 +87,7 @@ def _eval(apply, batch_, group):
     return {"loss_sum": ls, "n": n, "states": states}
 
 
-MESHES = {"ddp": (2, 1), "fsdp": (1, 2), "hsdp": (2, 2)}  # (data, fsdp)
+MESHES = {"ddp": (2, 1), "fsdp": (1, 2), "hsdp": (2, 2), "fsdp-drct": (1, 2)}  # (data, fsdp)
 
 
 def _worker(rank, port, mode, out):
@@ -101,7 +110,7 @@ def _worker(rank, port, mode, out):
         padded["weight"] = (np.arange(rows) < valid).astype(np.float32)
         per = rows // world
         share = to_torch({k: v[per * rank: per * (rank + 1)] for k, v in padded.items()})
-        model = _model()
+        model = _model(mode)
         result = {}
         if mode == "ddp":
             module = wrap_ddp(model, make_mesh("auto", 1, "cpu"), torch.device("cpu"))
@@ -109,7 +118,10 @@ def _worker(rank, port, mode, out):
             result["eval_group"] = _eval(lambda x: ts.clamped_apply(module, x), share,
                                          dist.group.WORLD)
         else:
+            from torch.distributed.fsdp import FSDPModule
+
             module = shard_fsdp(model, make_mesh(data, fsdp, "cpu"))
+            result["units"] = sum(isinstance(m, FSDPModule) for m in module.modules())
             apply, tx = ts.clamped_apply, ts.Tx(LR, clip=1e-3)
             result["eval_before"] = _eval(lambda x: apply(module, x), share, dist.group.WORLD)
         state = ts.TrainState.create(module, tx)
@@ -149,9 +161,9 @@ def _spawn(mode, tmp_path):
     return torch.load(out, weights_only=False)
 
 
-def _one_process(apply, tx):
+def _one_process(apply, tx, mode="fsdp"):
     """The one-process step on the unpadded batch; the gradient mask."""
-    model = _model()
+    model = _model(mode)
     state = ts.TrainState.create(model, tx)
     grad_step, apply_step = ts.make_accum_steps(apply, _loss(), tx)
     lsum, wsum = grad_step(state, to_torch(_global_batch()))
@@ -191,20 +203,22 @@ def test_ddp_step_on_a_padded_batch_is_the_one_process_step(tmp_path):
     assert p <= PARAM_ATOL and ev <= RTOL
 
 
-@pytest.mark.parametrize("mode", ["fsdp", "hsdp"])
+@pytest.mark.parametrize("mode", ["fsdp", "hsdp", "fsdp-drct"])
 def test_fsdp_step_and_eval_after_it(tmp_path, mode):
     got = _spawn(mode, tmp_path)
     tx = ts.Tx(LR, clip=1e-3)
-    model, loss, mask = _one_process(ts.clamped_apply, tx)
+    model, loss, mask = _one_process(ts.clamped_apply, tx, mode)
     p = _param_diff(got["params"], model, mask)
     full = to_torch(_global_batch())
     with torch.no_grad():
         before = _eval_diff(got["eval_before"],
-                            _eval(lambda x: ts.clamped_apply(_model(), x), full, None))
+                            _eval(lambda x: ts.clamped_apply(_model(mode), x), full, None))
         after = _eval_diff(got["eval_after"],
                            _eval(lambda x: ts.clamped_apply(model, x), full, None))
     data, fsdp = MESHES[mode]
-    print(f"{mode} mesh {data}x{fsdp} (FSDP2, gloo, clip 1e-3), B=3 padded to 4: loss {float(got['loss']):.8f} vs "
+    # a unit per RRDB and the root; per Swin block (5 in the DRCT's group) and the root
+    assert got["units"] == (6 if mode == "fsdp-drct" else 2)
+    print(f"{mode} mesh {data}x{fsdp} (FSDP2, gloo, clip 1e-3, {got['units']} units), B=3 padded to 4: loss {float(got['loss']):.8f} vs "
           f"one process {float(loss):.8f}; params max|diff| {p:.2e} (tol {PARAM_ATOL:.0e}); eval "
           f"before the step {before:.2e}, after it {after:.2e} (tol {RTOL:.0e})")
     assert abs(float(got["loss"]) - float(loss)) <= RTOL * abs(float(loss))

@@ -22,6 +22,7 @@ from xmm_superres_denoise_torch.infer.run_file import (
     serve_files,
 )
 from xmm_superres_denoise_torch.io.fits import write_image
+from xmm_superres_denoise_torch.models.registry import build_model
 from xmm_superres_denoise_torch.utils.weights import params_from_flax
 from xmm_superres_denoise_tpu import config as jcfg
 from xmm_superres_denoise_tpu.cli import load_run_config as jax_load_run_config
@@ -235,5 +236,8 @@ def test_config_rejects_unknown_keys_and_bad_values():
         tcfg.DatasetCfg(lr=lr, scaling="cubic")
     with pytest.raises(tcfg.ConfigError):
         tcfg.DatasetCfg(lr=dict(lr, res=0))
-    with pytest.raises(TypeError):  # training-only keys are not part of serving
-        tcfg.ModelCfg(name="esr_gen", model={"base_model": "esr_gen"}, scan_layers=True)
+    # scan_layers is accepted by the config, as by JAX's, and refused by the
+    # registry for a model that has no scanned form (JAX's ValueError)
+    scanned = tcfg.ModelCfg(name="esr_gen", model={"base_model": "esr_gen"}, scan_layers=True)
+    with pytest.raises(ValueError, match="scan_layers"):
+        build_model(scanned, (RES, RES), (2 * RES, 2 * RES))

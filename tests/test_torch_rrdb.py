@@ -15,7 +15,7 @@ import torch
 
 import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
 
-from xmm_superres_denoise_torch.config.schema import ModelCfg
+from xmm_superres_denoise_torch.config.schema import ConfigError, ModelCfg
 from xmm_superres_denoise_torch.models.registry import build_model
 from xmm_superres_denoise_torch.models import rrdb as port_rrdb
 from xmm_superres_denoise_torch.models.rrdb import (
@@ -127,8 +127,14 @@ def test_registry_builds_dn_and_rejects_bad_scale():
 
 @pytest.mark.parametrize("name", ["swinir", "swinfir", "drct", "hat", "restormer"])
 def test_unported_models_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelCfg(name=name, model={"base_model": "esr_gen"})
+    """The config takes each zoo model's own section; a section of no model
+    is refused (a ConfigError, as JAX's pydantic discriminator refuses it)."""
+    section = {"base_model": name}
+    if name != "restormer":
+        section.update(num_heads=[2], depths=[1])
+    assert ModelCfg(name=name, model=section).model.base_model == name
+    with pytest.raises(ConfigError, match="base_model"):
+        ModelCfg(name=name, model={"base_model": "vit"})
 
 
 # --------------------------------------------------------------------------

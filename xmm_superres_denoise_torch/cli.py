@@ -10,8 +10,10 @@
 The port of the JAX package's `cli.py` subcommands `fit`, `test`, `infer`,
 `serve` (with `--watch`) and `http`, with the same flags, the same JSON on
 standard output and the same run-config assembly (`load_run_config`).
-Everything runs on `--device`, `cuda:0` unless the caller asks for the
-CPU; without a card, a run that does not pass `--device cpu` fails.
+Every model of the registry is served and trained: the RRDB generators and
+the transformer zoo (SwinIR, SwinFIR, DRCT, HAT, Restormer), each from its
+run config. Everything runs on `--device`, `cuda:0` unless the caller asks
+for the CPU; without a card, a run that does not pass `--device cpu` fails.
 
 `fit` trains from the run config (`train/loop.py: Trainer`), then tests the
 best checkpoint as `test` does and prints the test metrics as strict JSON
@@ -112,7 +114,7 @@ def _build_trainer(args):
     try:
         trainer = Trainer(m_cfg, t_cfg, dm, create_loss(sc_dict, l_cfg), scaling_normalizers,
                           device=device)
-    except (NotImplementedError, RuntimeError) as e:  # what the trainer refuses to run
+    except (NotImplementedError, RuntimeError, ValueError) as e:  # what the trainer refuses
         raise CliError(str(e)) from e
     return trainer, t_cfg
 
@@ -182,8 +184,8 @@ def _check_serving_flags(args) -> None:
     if getattr(args, "mesh_data", 0):
         raise CliError(
             f"--mesh_data {args.mesh_data}: the PyTorch port serves on one card "
-            "(multi-device serving is not ported; ROADMAP.md Queue 1, training "
-            "harness and parallel/*)"
+            "(multi-device serving is not ported; ROADMAP.md Queue 1 item 8, "
+            "multi-device serving)"
         )
     if getattr(args, "plot", False):
         raise CliError(
@@ -204,7 +206,7 @@ def _load_checkpoint(ckpt: Path, model):
     if ckpt.suffix == ".onnx":
         raise CliError(
             f"--checkpoint {ckpt}: ONNX checkpoints are not read by the PyTorch port "
-            "yet (ROADMAP.md Queue 1 item 10, ONNX); pass an npz"
+            "yet (ROADMAP.md Queue 1 item 7, ONNX); pass an npz"
         )
     if ckpt.suffix != ".npz":
         raise CliError(f"--checkpoint {ckpt}: expected an .npz file")
@@ -254,18 +256,22 @@ def _build_engine(args):
     ds_cfg, m_cfg, _, _, _ = load_run_config(args.run_config)
     lr = (ds_cfg.lr.res, ds_cfg.lr.res)
     hr = (ds_cfg.hr.res, ds_cfg.hr.res) if ds_cfg.hr else lr
-    flat = _load_checkpoint(Path(args.checkpoint), build_model(m_cfg, lr, hr))
+    model = build_model(m_cfg, lr, hr)
+    flat = _load_checkpoint(Path(args.checkpoint), model)
     fingerprint = params_fingerprint({"params": flax_tree(flat)})
 
     mask = load_det_mask(ds_cfg.lr.det_mask) if ds_cfg.lr.det_mask else None
     scales_path = getattr(args, "int8_scales", None)
     scales = _load_scales(scales_path, fingerprint) if args.int8 else None
-    engine = InferenceEngine(
-        m_cfg, ds_cfg, params_from_flax(flat), det_mask=mask,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        crop_p=getattr(args, "crop_p", 1.0), quantize=args.int8,
-        int8_scales=scales, device=device,
-    )
+    try:
+        engine = InferenceEngine(
+            m_cfg, ds_cfg, params_from_flax(flat, model), det_mask=mask,
+            dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            crop_p=getattr(args, "crop_p", 1.0), quantize=args.int8,
+            int8_scales=scales, device=device,
+        )
+    except ValueError as e:  # what the engine refuses (int8 of a transformer, say)
+        raise CliError(str(e)) from e
 
     def save_scales() -> None:
         if args.int8 and scales_path and scales is None and engine.int8_scales:
@@ -402,7 +408,7 @@ def _engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 serving mode (f32 is the parity mode)")
     p.add_argument("--int8", action="store_true",
-                   help="w8a8 quantized serving (RRDB models; scales calibrated "
+                   help="w8a8 quantized serving (the RRDB models only; scales calibrated "
                         "on the first batch)")
     p.add_argument("--int8_scales", type=Path, default=None,
                    help="calibrated-scales JSON bound to the checkpoint: loaded "

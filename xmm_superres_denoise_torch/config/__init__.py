@@ -10,13 +10,15 @@ from .schema import (
     MeshCfg,
     ModelCfg,
     OptimizerCfg,
+    RestormerCfg,
     RrdbCfg,
     TrainerCfg,
+    TransformerCfg,
     load_run_config,
 )
 
 __all__ = [
     "BaseModels", "ConfigError", "DatasetCfg", "DatasetType", "HrDatasetCfg",
-    "ImageType", "LossCfg", "LrDatasetCfg", "MeshCfg", "ModelCfg", "OptimizerCfg", "RrdbCfg",
-    "TrainerCfg", "load_run_config",
+    "ImageType", "LossCfg", "LrDatasetCfg", "MeshCfg", "ModelCfg", "OptimizerCfg",
+    "RestormerCfg", "RrdbCfg", "TrainerCfg", "TransformerCfg", "load_run_config",
 ]

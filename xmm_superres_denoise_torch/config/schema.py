@@ -9,10 +9,13 @@ declares, checked in `__post_init__` the way the pydantic validators check
 them. No pydantic: the port must import on a machine that does not have it.
 Unlike pydantic, a constructor refuses a key it does not declare.
 
+The model section is `RrdbCfg` (esr_gen, rrdb_denoise), `TransformerCfg`
+(swinir, swinfir, drct, hat) or `RestormerCfg`, chosen by its `base_model`
+as the JAX schema's discriminator chooses it.
+
 `load_run_config` reads a run TOML (`res/configs/runs/*.toml`) and the model
 registry (`res/configs/models.toml`) into `(DatasetCfg, ModelCfg)`; the CLI's
-`load_run_config` adds the trainer section and the loss tables. Only the
-RRDB models are ported; the others raise `NotImplementedError`.
+`load_run_config` adds the trainer section and the loss tables.
 """
 
 from __future__ import annotations
@@ -24,12 +27,6 @@ from pathlib import Path
 from typing import List, Optional, Tuple, Union
 
 RES_DIR = Path(__file__).resolve().parents[2] / "res"
-
-_NOT_PORTED = (
-    "is not ported to the PyTorch package yet (ROADMAP.md Queue 1, "
-    "transformer zoo)"
-)
-
 
 class ConfigError(Exception):
     pass
@@ -214,21 +211,75 @@ class RrdbCfg:
             _positive(f"model.{name}", getattr(self, name))
 
 
+_UPSAMPLERS = ("pixelshuffle", "pixelshuffledirect", "nearest+conv", "")
+
+
+@dataclass
+class TransformerCfg:
+    base_model: str
+    num_heads: List[int]
+    depths: List[int]
+    patch_size: int = 1
+    img_size: int = 416
+    window_size: int = 16
+    embed_dim: int = 180
+    upsampler: str = "pixelshuffle"
+    in_channels: int = 1
+
+    def __post_init__(self):
+        _one_of("model.base_model", self.base_model, ("swinir", "swinfir", "drct", "hat"))
+        for name in ("patch_size", "img_size", "window_size", "embed_dim", "in_channels"):
+            _positive(f"model.{name}", getattr(self, name))
+        for name in ("num_heads", "depths"):
+            for v in getattr(self, name):
+                _positive(f"model.{name}[]", v)
+            setattr(self, name, list(getattr(self, name)))
+        _one_of("model.upsampler", self.upsampler, _UPSAMPLERS)
+
+
+@dataclass
+class RestormerCfg:
+    base_model: str
+    in_channels: int = 1
+    out_channels: int = 1
+    dim: int = 24
+
+    def __post_init__(self):
+        _one_of("model.base_model", self.base_model, ("restormer",))
+        for name in ("in_channels", "out_channels", "dim"):
+            _positive(f"model.{name}", getattr(self, name))
+
+
+# the model section's class by its base_model (the JAX schema's discriminator)
+_MODEL_SECTIONS = {
+    "esr_gen": RrdbCfg, "rrdb_denoise": RrdbCfg, "swinir": TransformerCfg,
+    "swinfir": TransformerCfg, "drct": TransformerCfg, "hat": TransformerCfg,
+    "restormer": RestormerCfg,
+}
+
+
 @dataclass
 class ModelCfg:
     name: BaseModels
-    model: RrdbCfg
+    model: Union[RrdbCfg, TransformerCfg, RestormerCfg]
     memory_efficient: bool = False
     batch_size: int = 1
     s2d_train: bool = False  # a training knob: accepted, not read when serving
+    # the JAX package's scan-compressed group stacks (Swin family): the port
+    # builds the same unrolled stack and reads and writes the `layers_scan`
+    # parameter layout (models/scan_stack.py); the registry refuses it
+    # for the other models, as JAX's does
+    scan_layers: bool = False
     optimizer: Optional[OptimizerCfg] = None  # training only; the registry's
 
     def __post_init__(self):
         self.name = BaseModels(self.name)
-        if self.name not in (BaseModels.ESR_GEN, BaseModels.RRDB_DENOISE):
-            raise NotImplementedError(f"model {self.name.value!r} {_NOT_PORTED}")
         if isinstance(self.model, dict):
-            self.model = RrdbCfg(**self.model)
+            base = self.model.get("base_model")
+            if base not in _MODEL_SECTIONS:
+                raise ConfigError(f"model.base_model must be one of "
+                                  f"{tuple(_MODEL_SECTIONS)}, got {base!r}")
+            self.model = _MODEL_SECTIONS[base](**self.model)
         if isinstance(self.optimizer, dict):
             self.optimizer = OptimizerCfg(**self.optimizer)
         _positive("batch_size", self.batch_size)
@@ -348,8 +399,6 @@ def load_run_config(
 
     model_dict = dict(cfg["model"])
     name = BaseModels(model_dict["name"])
-    if name not in (BaseModels.ESR_GEN, BaseModels.RRDB_DENOISE):
-        raise NotImplementedError(f"model {name.value!r} {_NOT_PORTED}")
     with open(Path(res_dir) / "configs" / "models.toml", "rb") as f:
         registry = tomllib.load(f)
     entry = registry[name.value]
@@ -360,6 +409,6 @@ def load_run_config(
 
 __all__ = [
     "BaseModels", "ConfigError", "DatasetCfg", "DatasetType", "HrDatasetCfg",
-    "LossCfg", "LrDatasetCfg", "MeshCfg", "ModelCfg", "OptimizerCfg", "RrdbCfg",
-    "TrainerCfg", "load_run_config",
+    "LossCfg", "LrDatasetCfg", "MeshCfg", "ModelCfg", "OptimizerCfg", "RestormerCfg",
+    "RrdbCfg", "TrainerCfg", "TransformerCfg", "load_run_config",
 ]

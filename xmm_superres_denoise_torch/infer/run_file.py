@@ -3,10 +3,11 @@
 The port of the JAX package's `infer/run_file.py`. The engine's
 pipeline is the JAX one, step for step: mask -> pad -> (crop) -> normalize
 -> model -> clip -> denormalize. PyTorch runs it eagerly on `device`
-(`cuda:0` unless the caller asks for the CPU); the model's dense blocks
-run on the hand-written kernel when the device is a card. `quantize=True`
-serves the RRDB models through the int8 space-to-depth forward
-(`ops/int8_forward.py`, every int8 convolution on the K3 kernel).
+(`cuda:0` unless the caller asks for the CPU) for any model of the
+registry; an RRDB model's dense blocks run on the hand-written kernel when
+the device is a card, a transformer of the zoo runs PyTorch's ops.
+`quantize=True` serves the RRDB models through the int8 space-to-depth
+forward (`ops/int8_forward.py`, every int8 convolution on the K3 kernel).
 
 `serve_files` serves a set of files through one warm engine and
 `watch_and_serve` polls directories as a daemon; the HTTP service is
@@ -77,8 +78,8 @@ class InferenceEngine:
             raise ValueError("int8_scales is for quantize=True")
         if mesh is not None:
             raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP.md Queue 1, "
-                "training harness and parallel/*)"
+                "multi-device serving is not ported yet (ROADMAP.md Queue 1 "
+                "item 8, multi-device serving)"
             )
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")

@@ -4,9 +4,12 @@ The port of the JAX package's `parallel/sharding.py`, where each parameter
 leaf gets a NamedSharding over the `fsdp` mesh axis and XLA inserts the
 all-gathers. Here:
 
-* `shard_fsdp` applies FSDP2's `fully_shard` to each RRDB and then to the
-  root, over the mesh's "fsdp" dimension; when both dimensions are > 1 the
-  2-D mesh makes it HSDP (sharded over "fsdp", replicated over "data").
+* `shard_fsdp` applies FSDP2's `fully_shard` to each RRDB (the RRDB
+  generators) or to each transformer block (`SwinTransformerBlock`, HAT's
+  `HAB` and `OCAB`, `RestormerBlock`: the reference's wrap policy) and
+  then to the root, over the mesh's "fsdp" dimension; when both dimensions
+  are > 1 the 2-D mesh makes it HSDP (sharded over "fsdp", replicated over
+  "data").
   The dense blocks stop caching their kernel pack (`cache_pack`): FSDP2
   gathers the parameters into fresh tensors for each forward, and one can
   land at a freed address with a matching version counter, so a cached
@@ -27,11 +30,16 @@ from .mesh import DATA_AXIS, FSDP_AXIS
 
 
 def shard_fsdp(model: nn.Module, mesh) -> nn.Module:
-    """`fully_shard` each RRDB and the root; returns `model` (now an
-    FSDPModule)."""
+    """`fully_shard` each RRDB or transformer block and the root; returns
+    `model` (now an FSDPModule)."""
     from torch.distributed.fsdp import fully_shard
 
+    from ..models.hat import HAB, OCAB
+    from ..models.restormer import RestormerBlock
     from ..models.rrdb import RRDB, ResidualDenseBlock5C
+    from ..models.swin_common import SwinTransformerBlock
+
+    units = (RRDB, SwinTransformerBlock, HAB, OCAB, RestormerBlock)
 
     if mesh.size(mesh.mesh_dim_names.index(FSDP_AXIS)) == 1:
         raise ValueError("shard_fsdp needs an fsdp dimension > 1")
@@ -40,7 +48,7 @@ def shard_fsdp(model: nn.Module, mesh) -> nn.Module:
         if isinstance(m, ResidualDenseBlock5C):
             m.cache_pack = False
     for m in list(model.modules()):
-        if isinstance(m, RRDB):
+        if isinstance(m, units):
             fully_shard(m, mesh=shard_mesh)
     # explicit for the root too: by default FSDP2 keeps the root's
     # parameters gathered after a forward, and after an evaluation (no

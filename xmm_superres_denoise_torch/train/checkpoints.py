@@ -17,8 +17,9 @@ epoch's val/loss.
 * Under several processes every rank takes part in gathering the state
   (FSDP needs it) and rank 0 writes; every rank reads to restore.
 * `save_params_npz` / `load_params_npz` (from `utils/weights.py`): the
-  parameters alone, as an npz in the Flax key layout that the JAX package's
-  `load_params_npz` and the port's serving CLI read.
+  parameters alone, as an npz in the Flax key layout of the model they
+  hold (`layers_scan` for a model built with `scan_layers`), which the JAX
+  package's `load_params_npz` and the port's serving CLI read.
 """
 
 from __future__ import annotations

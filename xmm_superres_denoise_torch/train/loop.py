@@ -11,10 +11,12 @@
     test:  the same eval path with the extended and input-baseline
            collections, from the best (or given) state.
 
-The forward is `clamped_apply` of the model, or with `model.s2d_train` the
-S2D training route (`ops/s2d_forward.py: make_s2d_train_apply`, the dense
-blocks on K1). f32 steps and every evaluation run with TF32 off
-(`true_f32`): f32 is the parity class. bf16 steps leave TF32 as it is.
+The forward is `clamped_apply` of the model (deterministic: a transformer's
+drop path draws nothing, as JAX's trainer passes no rngs), or with
+`model.s2d_train` the S2D training route of an RRDB generator
+(`ops/s2d_forward.py: make_s2d_train_apply`, the dense blocks on K1). f32
+steps and every evaluation run with TF32 off (`true_f32`): f32 is the
+parity class. bf16 steps leave TF32 as it is.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class FitResult:
 
 
 class Trainer:
-    """`fit` and `test` of an RRDB generator on `device` (`cuda:0` unless the
+    """`fit` and `test` of a registry model on `device` (`cuda:0` unless the
     caller asks for the CPU). In a process group (`parallel/distributed.py:
     initialize_distributed`) the run is data parallel over the group: DDP,
     or FSDP2 when `trainer.mesh.fsdp` > 1 (HSDP when `mesh.data` > 1 too);
@@ -149,8 +151,12 @@ class Trainer:
 
         self.model = build_model(model_config, self.lr_shape, self.hr_shape)
         if model_config.s2d_train:
+            from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
             from ..ops.s2d_forward import make_s2d_train_apply
 
+            if not isinstance(self.model, (GeneratorRRDB_SR, GeneratorRRDB_DN)):
+                raise ValueError("s2d_train=true is supported for the RRDB models only "
+                                 f"(got {type(self.model).__name__})")
             # clips in the model's forward; memory_efficient checkpoints each dense block
             self._apply = make_s2d_train_apply(self.model, remat=model_config.memory_efficient)
         else:
