@@ -52,7 +52,26 @@ Phases, each printing its result and its seconds:
 8. http: `run_http_server` on 127.0.0.1 (a free port) in a thread over the
    bf16 engine: each file POSTed, each response bitwise equal to
    `infer_file`'s prediction, then /stats, then the stop event;
-9. eval: a synthetic simulated dataset tree (80 base names at the
+9. events: a synthetic EPIC-pn event list of 4,194,304 events (DETX
+   -16120..16119, DETY -16440..16439: 411 x 403 at bin 80; PI 150..12000,
+   PATTERN 0..12, some FLAG set; TIME from 5.6e8 s, with events exactly on
+   each GTI edge and 1 s either side) in a PPS directory with its FBKTSR
+   curve (20-40 GTIs from its flares, capped at 20 ks), CALIND and ATTTSR;
+   loaded through the native reader (which must be the one that ran) and
+   binned on cuda:0 (`bin_events(device=...)`), on the host and by an
+   independent count written here (np.add.at): bitwise equal, for the EPN
+   cuts and the EMOS mask; load s, host bin ms, card bin ms with and
+   without the host->device copy, Mevents/s of each;
+10. end2end: the trained weights exported by the port as a full ONNX graph,
+   run by the port's lite runtime on cuda:0 against the engine's f32
+   forward on one prepared tile; `cli end2end --checkpoint weights.onnx` on
+   [events]' PPS directory in f32, bf16 and int8 (twice on one fresh scales
+   file), in-process with K2, K3 and P launches counted, the detxy product
+   bitwise equal to [events]' host image and each prediction bitwise equal
+   to `infer_file` through an engine loaded from the npz, int8 at the 40 dB
+   gate; the same end2end as a `python -m` subprocess; `cli detxy`; `cli
+   verify --onnx weights.onnx` on the 4 [serve] files; latency_s per mode;
+11. eval: a synthetic simulated dataset tree (80 base names at the
    detector's geometry, AGN and background sets, written with the port's
    FITS codec) through `XmmDataModule` (the run config's dataset section,
    on cuda:0): the val loader's batch of 8 at 416^2 -> 832^2 through the
@@ -61,7 +80,7 @@ Phases, each printing its result and its seconds:
    collections computed on the CPU in float64 from the card's own
    predictions; ms per batch for the forward, the core and the extended
    metrics, and the loader's host ms per batch;
-10. train: training through the command line on the same tree, the shipped
+12. train: training through the command line on the same tree, the shipped
    esr_gen_sr run config at full width (batch 8, 416^2 -> 832^2, f32,
    s2d_train as shipped: the dense blocks on K1 through its gradient route)
    with only its epochs (2), checkpoint root and data directory changed:
@@ -71,11 +90,11 @@ Phases, each printing its result and its seconds:
    `cli test` bitwise equal to the fit's test; one epoch in bf16 and one with
    s2d_train = false (60 K2 launches per step); one step through DDP on NCCL
    at world size 1, bitwise equal to the unwrapped step;
-11. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
+13. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
    sqrt table) on a seeded (8, 832, 832, 1) pair, value and d loss / d preds
    on the card (TF32 off) against float64 on the CPU, and the warm
    forward+backward time;
-12. grad: one forward+backward of the full-width SR model (trained
+14. grad: one forward+backward of the full-width SR model (trained
    weights, f32, TF32 off, the run config's loss, batch 1 at 416^2 ->
    832^2, or 128^2 when the CPU reference would take over a minute) on the
    card, its dense blocks through `dense_block`'s autograd route (K2
@@ -84,18 +103,18 @@ Phases, each printing its result and its seconds:
    (`make_s2d_train_apply`: K1 forward, 60 launches) held to the same CPU
    gradients, with its f32 and bf16 times; one bf16 forward+backward; the
    inference-only `dense_block_s2d` and `conv_i8` refusing a gradient;
-13. train-routes: the measurements behind the S2D route's design at batch
+15. train-routes: the measurements behind the S2D route's design at batch
    8: a dense block's backward in the original domain (C = 32) against
    the S2D domain on cuDNN (C = 128, NCHW and channels_last), and the
    outer convolutions in both domains, f32 (TF32 off) and bf16;
-14. profile: one warm batch of each serving mode (model f32 and bf16, S2D
+16. profile: one warm batch of each serving mode (model f32 and bf16, S2D
    f32 and bf16, fast f32 and bf16, int8) traced with torch.profiler:
    device-busy time per image, idle share, and busy time by kernel group;
    a trace that lost some of the port's kernel launches is taken again;
    for int8 also its elementwise launches per batch and K3's time against
    the forward's int8 operations at the published peak.
 
-15. zoo: the transformer zoo's five shipped run configs (swinir_sr,
+17. zoo: the transformer zoo's five shipped run configs (swinir_sr,
    swinfir_sr, drct_sr_fsdp, hat_sr, restormer_denoise) at full width with
    seeded weights, each written as a Flax-layout npz (`layers_scan` for HAT
    and DRCT) and the 4 files served through `cli serve` in f32 and bf16;
@@ -110,7 +129,9 @@ Phases, each printing its result and its seconds:
    checkpoint, bitwise equal to the fit's test. The zoo adds no kernel:
    its attention, LayerNorm, FFT and convolutions are PyTorch's ops.
 
-The last two lines are a `kernels` JSON line and the result line
+The `kernels` line's K2 f32 and bf16, P and K3 entries also carry
+`launches_end2end`, their launches in one `cli end2end` batch. The last two
+lines are a `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
 card it exits non-zero at once and prints no result. All products go to a
 temporary directory; the only files written inside the checkout are the
@@ -1167,6 +1188,303 @@ def phase_http(ctx, tmp: Path) -> None:
         raise AssertionError(f"http: bitwise {same}, stats {stats}, alive {thread.is_alive()}")
 
 
+EVENTS_N = 4 * 2**20  # a 20 ks full-frame EPIC-pn observation with its background
+EVENTS_T0 = 5.6e8  # XMM mission elapsed time: an f32 ulp is 64 s there
+EVENTS_SPAN_S = 30_000.0
+EVENTS_DET = (-16120, 16119, -16440, 16439)  # DETX, DETY TLMIN/TLMAX: 403 x 411 at bin 80
+EVENTS_MAX_EXPO_KS = 20.0
+EVENTS_GTI_RANGE = (20, 40)  # GTIs the FBKTSR curve's flares cut before capping
+EVENTS_EDGE = 256  # events placed exactly on each edge of each capped GTI, and 1 s either side
+EVENTS_TIMED = 5  # warm calls per timed binning route
+E2E_PPS = "P0123456789PNS003PIEVLI0000.FTZ"
+
+
+def _rate_curve(g):
+    """A flaring-background curve (FBKTSR) over the observation: a quiet
+    rate with short flares, 10 s bins."""
+    t = EVENTS_T0 + np.arange(0.0, EVENTS_SPAN_S, 10.0)
+    rate = g.uniform(0.1, 0.3, t.size)
+    for s in g.choice(t.size - 30, 30, replace=False):
+        rate[s : s + g.integers(3, 30)] = g.uniform(1.0, 9.0)
+    return t, rate
+
+
+def _in_gti(t, start, stop):
+    """Membership of times `t` in sorted, disjoint [start, stop) intervals."""
+    k = np.searchsorted(start, t, side="right") - 1
+    return (k >= 0) & (t < stop[np.maximum(k, 0)])
+
+
+def _independent_count(cols, gti, flag_mask, pattern_max):
+    """The detxy image counted here without the port: the evselect
+    selection restated with numpy (GTI membership by searchsorted over the
+    sorted, disjoint GTIs) and np.add.at into the 411 x 403 grid."""
+    x0, x1, y0, y1 = EVENTS_DET
+    in_gti = _in_gti(cols["TIME"], gti.start, gti.stop)
+    sel = ((cols["PI"] >= 500) & (cols["PI"] <= 2000) & ((cols["FLAG"] & flag_mask) == 0)
+           & (cols["PATTERN"] <= pattern_max) & in_gti)
+    ix = (cols["DETX"][sel] - x0) // 80
+    iy = (cols["DETY"][sel] - y0) // 80
+    nx, ny = (x1 - x0 + 1) // 80, (y1 - y0 + 1) // 80
+    inside = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+    img = np.zeros((ny, nx), np.float32)
+    np.add.at(img, (iy[inside], ix[inside]), 1.0)
+    return img
+
+
+def phase_events(tmp: Path) -> dict:
+    """A synthetic 4 M-event EPIC-pn list in a PPS directory, loaded through
+    the native reader and binned on the card, on the host and by an
+    independent count: bitwise equal, for the EPN cuts and the EMOS mask."""
+    from xmm_superres_denoise_torch.data import native_loader
+    from xmm_superres_denoise_torch.io import native_bintable
+    from xmm_superres_denoise_torch.io.fits import write_bintable
+    from xmm_superres_denoise_torch.ops import events as ev
+
+    t0 = time.perf_counter()
+    g = np.random.default_rng(14)
+    t_rate, rate = _rate_curve(g)
+    gti_all = ev.gti_from_rate(t_rate, rate, 0.5)
+    gti = ev.cap_gti_exposure(gti_all, EVENTS_MAX_EXPO_KS)
+    x0, x1, y0, y1 = EVENTS_DET
+    n = EVENTS_N
+    times = g.uniform(EVENTS_T0, EVENTS_T0 + EVENTS_SPAN_S, n)
+    edges = np.concatenate([gti.start, gti.stop])
+    for i, e in enumerate(edges):  # exactly on each edge, and 1 s either side
+        s = i * 3 * EVENTS_EDGE
+        times[s : s + EVENTS_EDGE] = e
+        times[s + EVENTS_EDGE : s + 2 * EVENTS_EDGE] = e - 1.0
+        times[s + 2 * EVENTS_EDGE : s + 3 * EVENTS_EDGE] = e + 1.0
+    cols = {
+        "TIME": np.sort(times),
+        "DETX": g.integers(x0, x1 + 1, n).astype(np.int32),
+        "DETY": g.integers(y0, y1 + 1, n).astype(np.int32),
+        "X": g.integers(20_000, 32_000, n).astype(np.int32),
+        "Y": g.integers(20_000, 32_000, n).astype(np.int32),
+        "PI": g.integers(150, 12_001, n).astype(np.int32),
+        "PATTERN": g.integers(0, 13, n).astype(np.int32),
+        "FLAG": g.choice(np.array([0] * 12 + [1, 0x10, 0x2000, 0x40000000], np.int32), n),
+    }
+    pps = tmp / "pps"
+    pps.mkdir()
+    hdr = {"INSTRUME": "EPN", "ONTIME": EVENTS_SPAN_S, "TSTART": EVENTS_T0,
+           "TSTOP": EVENTS_T0 + EVENTS_SPAN_S, "OBS_ID": "0123456789",
+           "REFXCRPX": 25921, "REFYCRPX": 25921, "REFXCRVL": 187.701875, "REFYCRVL": 12.389,
+           "REFXCDLT": -1.38888888888889e-05, "REFYCDLT": 1.38888888888889e-05}
+    evl = write_bintable(pps / E2E_PPS, cols, extname="EVENTS", header=hdr,  # uncompressed
+                         column_limits={"DETX": (x0, x1), "DETY": (y0, y1),
+                                        "X": (1, 51840), "Y": (1, 51840)})
+    write_bintable(pps / "P0123456789PNS003FBKTSR0000.FTZ", {"TIME": t_rate, "RATE": rate},
+                   extname="RATE", header={"FLCUTTHR": 0.5},
+                   primary_header={"INSTRUME": "EPN", "OBS_ID": "0123456789"})
+    (pps / "P0123456789OBX000CALIND0000.FTZ").write_bytes(b"\x00")
+    ta = EVENTS_T0 + np.linspace(0.0, EVENTS_SPAN_S, 3000)
+    write_bintable(pps / "P0123456789OBX000ATTTSR0000.FTZ",
+                   {"TIME": ta, "AHFRA": 187.7 + g.normal(0, 1e-3, ta.size),
+                    "AHFDEC": 12.39 + g.normal(0, 1e-3, ta.size),
+                    "AHFPA": 109.3 + g.normal(0, 1e-2, ta.size)}, extname="ATTHK")
+    write_s = time.perf_counter() - t0
+    mb = evl.stat().st_size / 2**20
+
+    tb = time.perf_counter()
+    native_loader.get_lib()  # the reader's g++ build at first use, kept out of the load time
+    build_s = time.perf_counter() - tb
+    t1 = time.perf_counter()
+    events = ev.load_event_list(evl)
+    load_s = time.perf_counter() - t1
+    # load_event_list falls back to the Python reader only where this returns None
+    native = native_bintable.read_bintable_native(evl, ["TIME"], extname="EVENTS")
+    reader = "python" if native is None else "native"
+    say(f"[events] {n} events ({mb:.1f} MiB, uncompressed), {len(gti_all.start)} GTIs from the "
+        f"FBKTSR flares, {len(gti.start)} after the {EVENTS_MAX_EXPO_KS:.0f} ks cap "
+        f"({gti.exposure:.1f} s), {EVENTS_EDGE} events on each GTI edge and 1 s either side; "
+        f"written in {write_s:.2f} s; the native reader built in {build_s:.2f} s; load "
+        f"{load_s:.3f} s through the {reader} reader "
+        f"({n / load_s / 1e6:.2f} Mevents/s)")
+    # what a rebase to the first event and an f32 cast (the JAX package's
+    # device route) would misplace: events within half an f32 ulp of an edge
+    t_first = cols["TIME"][0]
+    f32 = [(a - t_first).astype(np.float32) for a in (cols["TIME"], gti.start, gti.stop)]
+    flips = int(np.sum(_in_gti(*f32) != _in_gti(cols["TIME"], gti.start, gti.stop)))
+    say(f"[events] events whose GTI membership an f32 cast after a rebase would flip: {flips} "
+        "(the card compares the float64 times)")
+    if reader != "native" or not EVENTS_GTI_RANGE[0] <= len(gti_all.start) <= EVENTS_GTI_RANGE[1]:
+        raise AssertionError(f"events: reader {reader}, {len(gti_all.start)} GTIs")
+
+    dev = torch.device("cuda:0")
+    images = {}
+    for inst in ("EPN", "EMOS1"):
+        filt = ev.instrument_filter(inst)
+        kw = dict(pattern_max=filt["pattern_max"], flag_mask=filt["flag_mask"])
+        card, _ = ev.bin_events(events, gti, device=dev, **kw)  # warm: allocator, first launch
+        host, meta = ev.bin_events(events, gti, **kw)
+        ref = _independent_count(cols, gti, filt["flag_mask"], filt["pattern_max"])
+        same = bool(np.array_equal(card, host) and np.array_equal(host, ref))
+
+        th = time.perf_counter()
+        for _ in range(EVENTS_TIMED):
+            ev.bin_events(events, gti, **kw)
+        host_ms = (time.perf_counter() - th) * 1e3 / EVENTS_TIMED
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        for _ in range(EVENTS_TIMED):
+            ev.bin_events(events, gti, device=dev, **kw)  # ends in the copy back: synchronous
+        copy_ms = (time.perf_counter() - tc) * 1e3 / EVENTS_TIMED
+        args = ev._device_inputs(events, gti, 2**20, dev)
+        static = dict(nx=meta["nx"], ny=meta["ny"], bin_size=80, x0=meta["x0"], y0=meta["y0"],
+                      pi_lo=500, pi_hi=2000, **kw)
+        card_ms = _time_ms(lambda: ev._bin_events_device(*args, **static))
+        rejected = n - int(host.sum())
+        one_bin = torch.full((rejected,), meta["nx"] * meta["ny"], device=dev)
+        spread = one_bin + torch.arange(rejected, device=dev) % ev.OVERFLOW_BINS
+        size = meta["nx"] * meta["ny"] + ev.OVERFLOW_BINS
+        one_ms, spread_ms = (_time_ms(lambda i=i: torch.bincount(i, minlength=size))
+                             for i in (one_bin, spread))
+        say(f"[events] {inst} cuts: card, host and independent count bitwise equal: {same} "
+            f"({int(host.sum())} counts in {host.shape}); host bin {host_ms:.3f} ms "
+            f"({n / host_ms / 1e3:.2f} Mevents/s); card bin incl. the host->device copy "
+            f"{copy_ms:.3f} ms ({n / copy_ms / 1e3:.2f} Mevents/s); card bin alone (CUDA "
+            f"events) {card_ms:.3f} ms ({n / card_ms / 1e3:.2f} Mevents/s); the bincount of "
+            f"the {rejected} rejected events into one overflow bin {one_ms:.3f} ms, spread "
+            f"over {ev.OVERFLOW_BINS} bins (the route's) {spread_ms:.3f} ms")
+        if not same:
+            raise AssertionError(f"events {inst}: card, host and independent count differ")
+        images[inst] = host
+    say(f"[events] ({time.perf_counter() - t0:.2f} s)")
+    return {"pps": pps, "detxy": images["EPN"], "gti": gti}
+
+
+def _e2e_cli(argv) -> tuple:
+    """`cli end2end` (or another subcommand) in-process, with the count of
+    each kernel's launches: (exit code, JSON, seconds, {kernel: launches})."""
+    from xmm_superres_denoise_torch.ops.conv_i8 import conv_i8
+    from xmm_superres_denoise_torch.ops.dense_block import dense_block
+    from xmm_superres_denoise_torch.ops.int8_gemm import int8_gemm
+
+    dense_block.launches = conv_i8.launches = int8_gemm.launches = 0
+    rc, out, secs = _cli(argv)
+    return rc, out, secs, {"K2": dense_block.launches, "K3": conv_i8.launches,
+                           "P": int8_gemm.launches}
+
+
+def phase_end2end(ctx, tmp: Path, events: dict) -> dict:
+    """The obsid chain through the command line with an ONNX checkpoint the
+    port exported from the trained weights: end2end in f32, bf16 and int8
+    (twice), detxy and verify. Returns the launches of each run."""
+    from xmm_superres_denoise_torch.infer.onnx_export import export_rrdb_onnx_model
+    from xmm_superres_denoise_torch.infer.onnx_runtime_lite import read_onnx_model, run_graph
+    from xmm_superres_denoise_torch.infer.run_file import InferenceEngine, infer_file
+    from xmm_superres_denoise_torch.io.fits import read_image
+    from xmm_superres_denoise_torch.ops.precision import true_f32
+
+    t0 = time.perf_counter()
+    hr_max, f32_engine = ctx["hr_max"], ctx["engines"]["f32"]
+    onnx = export_rrdb_onnx_model(f32_engine.model, None, tmp / "weights.onnx")
+    graph = read_onnx_model(onnx)
+    with torch.inference_mode():
+        x = f32_engine.prepare(torch.from_numpy(ctx["raw"][:1]).to("cuda:0"))
+        want = f32_engine.normalizer.denormalize_hr(f32_engine.predict(x))
+        with true_f32():
+            run_graph(graph, {"input": x.permute(0, 3, 1, 2)}, device="cuda:0")
+            torch.cuda.synchronize()
+            tg = time.perf_counter()
+            out = run_graph(graph, {"input": x.permute(0, 3, 1, 2)}, device="cuda:0")["output"]
+            torch.cuda.synchronize()
+            graph_ms = (time.perf_counter() - tg) * 1e3
+        got = f32_engine.normalizer.denormalize_hr(out.permute(0, 2, 3, 1))
+        err = float(torch.max(torch.abs(got - want)))
+    say(f"[end2end] exported {onnx.name} ({onnx.stat().st_size / 2**20:.2f} MiB, "
+        f"{len(graph.nodes)} nodes, {len(graph.initializers)} initializers); run_graph on "
+        f"cuda:0 ({graph_ms:.2f} ms, host clock) vs the engine's f32 forward on one tile: "
+        f"max|diff| {err / hr_max:.3e} x hr_max (tol {SERVE_F32_RTOL:.0e})")
+    if not err <= SERVE_F32_RTOL * hr_max:
+        raise AssertionError(f"end2end: run_graph disagrees with the f32 engine: {err}")
+
+    base = ["end2end", "--pps", events["pps"], "--checkpoint", onnx, "--run_config", RUN_CONFIG]
+    scales = tmp / "e2e_int8_scales.json"
+    modes = {"f32": [], "bf16": ["--bf16"], "int8 calibrate": ["--int8", "--bf16",
+             "--int8_scales", scales], "int8 load": ["--int8", "--bf16", "--int8_scales", scales]}
+    runs, launches = {}, {}
+    for mode, flags in modes.items():
+        rc, out, secs, counts = _e2e_cli([*base, "--out", tmp / f"e2e_{mode.replace(' ', '_')}",
+                                          *flags])
+        if rc != 0:
+            raise AssertionError(f"cli end2end {mode}: exit code {rc}")
+        runs[mode], launches[mode] = out, counts
+        say(f"[end2end] cli end2end {mode}: {secs:.3f} s, latency_s {out['latency_s']}, "
+            f"launches {counts}")
+
+    detxy, dhdr = read_image(runs["f32"]["detxy"])
+    same_detxy = bool(np.array_equal(detxy.astype(np.float32), events["detxy"]))
+    int8_engine = InferenceEngine(
+        ctx["model_cfg"], ctx["ds_cfg"], ctx["params"], dtype=torch.bfloat16, quantize=True,
+        int8_scales=json.loads(scales.read_text())["scales"])
+    refs = {"f32": ctx["engines"]["f32"], "bf16": ctx["engines"]["bf16"],
+            "int8 calibrate": int8_engine, "int8 load": int8_engine}
+    preds, same = {}, {}
+    for mode, engine in refs.items():
+        _, p_pred = infer_file(runs[mode]["detxy"], engine, tmp / f"e2e_ref_{mode[:4]}", 100.0,
+                               "esr_gen")
+        preds[mode] = read_image(runs[mode]["prediction"])[0]
+        same[mode] = bool(np.array_equal(preds[mode], read_image(p_pred)[0]))
+    psnr = _psnr(preds["int8 load"], preds["f32"], hr_max)
+    say(f"[end2end] detxy product ({detxy.shape}, EXPOSURE {dhdr['EXPOSURE']}, RA_PNT "
+        f"{dhdr['RA_PNT']:.5f} from the ATTTSR) bitwise equal to [events]' host image: "
+        f"{same_detxy}; predictions bitwise equal to infer_file through engines loaded from "
+        f"the npz: {same}; int8 vs f32 PSNR {psnr:.2f} dB on the hr_max scale (gate "
+        f"{INT8_PSNR_DB:.0f})")
+    if not same_detxy or not all(same.values()) or psnr < INT8_PSNR_DB:
+        raise AssertionError(f"end2end: detxy {same_detxy}, bitwise {same}, int8 {psnr} dB")
+    want = {"f32": {"K2": 60, "K3": 0}, "bf16": {"K2": 60, "K3": 0},
+            "int8 calibrate": {"K2": 0, "K3": 64}, "int8 load": {"K2": 0, "K3": 64}}
+    for mode, counts in launches.items():
+        if any(counts[k] != v for k, v in want[mode].items()) or (
+                mode.startswith("int8") and counts["P"] < 1):
+            raise AssertionError(f"end2end {mode}: launches {counts}, expected {want[mode]}")
+
+    # the module entry point in its own process, f32: bitwise equal in-process
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "xmm_superres_denoise_torch.cli", *map(str, base),
+         "--out", str(tmp / "e2e_subprocess")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m ...cli end2end: exit code {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    same_sub = bool(np.array_equal(read_image(sub["prediction"])[0], preds["f32"]))
+    rc, det, _, _ = _e2e_cli(["detxy", "--pps", events["pps"], "--out", tmp / "e2e_detxy"])
+    same_det = rc == 0 and Path(det["detxy"]).read_bytes() == Path(runs["f32"]["detxy"]).read_bytes()
+    say(f"[end2end] python -m xmm_superres_denoise_torch.cli end2end (own process): latency_s "
+        f"{sub['latency_s']}, prediction bitwise equal in-process: {same_sub}; cli detxy "
+        f"product byte-identical to end2end's: {same_det} ({time.perf_counter() - t1:.2f} s)")
+    if not (same_sub and same_det):
+        raise AssertionError(f"end2end subprocess {same_sub}, detxy {same_det}")
+
+    t2 = time.perf_counter()
+    data = tmp / "verify_data"
+    data.mkdir()
+    for f in ctx["files"]:
+        (data / Path(f).name).write_bytes(Path(f).read_bytes())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        from xmm_superres_denoise_torch.cli import main
+
+        rc = main(["verify", "--onnx", str(onnx), "--run_config", str(RUN_CONFIG),
+                   "--data", str(data)])
+    report = json.loads(out.getvalue())
+    rows = report["files"]
+    say(f"[end2end] cli verify --onnx {onnx.name} on the {len(rows)} [serve] files: exit code "
+        f"{rc}, runtime {report['runtime']}, max|diff| {[r['max_abs_diff'] for r in rows]} "
+        f"(tol {report['tol']}), PSNR vs ONNX {[r['psnr_vs_onnx'] for r in rows]} dB, SSIM "
+        f"{[r['ssim_vs_onnx'] for r in rows]}, int8 {report.get('int8_psnr_db')} dB (gate "
+        f"{INT8_PSNR_DB:.0f}), passed {report['passed']} ({time.perf_counter() - t2:.2f} s)")
+    if rc != 0 or not report["passed"]:
+        raise AssertionError(f"cli verify: exit code {rc}, {report}")
+    say(f"[end2end] ({time.perf_counter() - t0:.2f} s)")
+    return launches
+
+
 def _loss_pair(shape, seed=11):
     """A seeded target in [0, 1] (a coarse field, 8 x 8 px cells, plus noise)
     and a prediction of it with noise, float32 numpy."""
@@ -2207,6 +2525,7 @@ def main() -> int:
             int8_launches = phase_serve_int8(ctx, Path(tmp))
             phase_cli(ctx, Path(tmp))
             phase_http(ctx, Path(tmp))
+            e2e_launches = phase_end2end(ctx, Path(tmp), phase_events(Path(tmp)))
             root = phase_eval(Path(tmp))
             phase_train(Path(tmp), root)
         phase_loss()
@@ -2217,12 +2536,16 @@ def main() -> int:
             phase_zoo(Path(tmp))
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
+            entry["launches_end2end"] = e2e_launches[name]["K2"]
         s2d_f32["launches"] = s2d_launches["s2d f32"]
         s2d_bf16["launches"] = s2d_launches["s2d bf16"]
         k2_c128["launches"] = s2d_launches["fast bf16"]
         k2_c128_f32["launches"] = s2d_launches["fast f32"]
         p_entry["launches"] = int8_launches["int8_gemm"]
         k3_entry["launches"] = k3_fused["launches"] = int8_launches["conv_i8"]
+        p_entry["launches_end2end"] = e2e_launches["int8 calibrate"]["P"]
+        k3_entry["launches_end2end"] = k3_fused["launches_end2end"] = (
+            e2e_launches["int8 calibrate"]["K3"])
         kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))

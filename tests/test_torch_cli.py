@@ -247,7 +247,8 @@ REFUSALS = {
     "unmatched-pattern": (lambda tmp, tp: [tmp / "det*.fist"], (), "no input files matched"),
     "mesh_data": (lambda tmp, tp: [tmp / "det0.fits"], ("--mesh_data", 2), "one card"),
     "plot": (lambda tmp, tp: [tmp / "det0.fits"], ("--plot",), "--plot"),
-    "onnx": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ONNX"), "Queue 1 item 7"),
+    # an ONNX checkpoint is read; one whose initializers do not form the model is refused
+    "onnx": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ONNX"), "ONNX import"),
     "orbax": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ORBAX"), "needs JAX"),
 }
 

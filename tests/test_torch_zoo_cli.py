@@ -11,7 +11,7 @@
   dataset (104^2 -> 208^2, one epoch): finite losses, the files a fit
   leaves, `test` equal to fit's test.
 * The refusals that name a ROADMAP.md Queue 1 item name the item it is now:
-  multi-device serving is item 8, ONNX item 7.
+  multi-device serving is item 8, PNG plots item 9.
 """
 
 import importlib
@@ -139,10 +139,8 @@ def test_fit_then_test_a_cut_swinir(tmp_path, cut, monkeypatch):
 def test_refusal_messages_name_their_roadmap_items(setup, tmp_path, caplog):
     base = ["serve", setup / "det0.fits", "--out", tmp_path / "out", "--run_config", RUN,
             "--device", "cpu"]
-    onnx = tmp_path / "w.onnx"
-    onnx.write_bytes(b"\x08\x07")
     for flags, item in ((["--checkpoint", setup / "swinir.npz", "--mesh_data", 2], "item 8"),
-                        (["--checkpoint", onnx], "item 7")):
+                        (["--checkpoint", setup / "swinir.npz", "--plot"], "item 9")):
         caplog.clear()
         with caplog.at_level(logging.ERROR, logger="xmmsr"):
             rc, _ = _run(tcli.main, [*base, *flags])

@@ -2,18 +2,33 @@
 
     python -m xmm_superres_denoise_torch.cli fit  <run_config.toml> [--no-extended]
     python -m xmm_superres_denoise_torch.cli test <run_config.toml> [--no-extended]
-    python -m xmm_superres_denoise_torch.cli infer --fits F --checkpoint C.npz --out DIR --run_config R
-    python -m xmm_superres_denoise_torch.cli serve 'DIR/*.fits' --checkpoint C.npz --out DIR --run_config R
+    python -m xmm_superres_denoise_torch.cli infer --fits F --checkpoint C --out DIR --run_config R
+    python -m xmm_superres_denoise_torch.cli serve 'DIR/*.fits' --checkpoint C --out DIR --run_config R
     python -m xmm_superres_denoise_torch.cli serve DIR --watch ... (a polling daemon)
-    python -m xmm_superres_denoise_torch.cli http --checkpoint C.npz --run_config R [--port N]
+    python -m xmm_superres_denoise_torch.cli http --checkpoint C --run_config R [--port N]
+    python -m xmm_superres_denoise_torch.cli detxy --pps DIR --out DIR
+    python -m xmm_superres_denoise_torch.cli end2end --pps DIR --checkpoint C --out DIR --run_config R
+    python -m xmm_superres_denoise_torch.cli export --checkpoint FIT_DIR --out W.onnx|W.npz --run_config R
+    python -m xmm_superres_denoise_torch.cli verify --onnx W.onnx --run_config R --data DIR
 
-The port of the JAX package's `cli.py` subcommands `fit`, `test`, `infer`,
-`serve` (with `--watch`) and `http`, with the same flags, the same JSON on
-standard output and the same run-config assembly (`load_run_config`).
-Every model of the registry is served and trained: the RRDB generators and
-the transformer zoo (SwinIR, SwinFIR, DRCT, HAT, Restormer), each from its
-run config. Everything runs on `--device`, `cuda:0` unless the caller asks
-for the CPU; without a card, a run that does not pass `--device cpu` fails.
+The port of the JAX package's `cli.py` subcommands, with the same flags,
+the same JSON on standard output and the same run-config assembly
+(`load_run_config`). Every model of the registry is served and trained: the
+RRDB generators and the transformer zoo (SwinIR, SwinFIR, DRCT, HAT,
+Restormer), each from its run config. The model runs on `--device`,
+`cuda:0` unless the caller asks for the CPU; without a card, a run that
+does not pass `--device cpu` fails. `detxy` and `export` run on the host
+(the event binning of the obsid chain is the host route, as in the JAX
+package).
+
+A serving checkpoint (`--checkpoint` of `infer`, `serve`, `http` and
+`end2end`) is an npz in the Flax layout, an ONNX file (its initializers,
+torch-named, as the reference ships them and `export` writes them) or the
+directory a port `fit` wrote (its best checkpoint). `export` writes a fit
+directory's best weights as npz, or as ONNX: the full runnable graph for the
+RRDB models, the torch-named initializers for the others. `verify` holds an
+ONNX checkpoint's graph, run by an independent runtime, against the port's
+forward on FITS images, and the int8 forward against f32.
 
 `fit` trains from the run config (`train/loop.py: Trainer`), then tests the
 best checkpoint as `test` does and prints the test metrics as strict JSON
@@ -26,9 +41,8 @@ serves both packages.
 
 Refused with exit code 2 and a message: `fit --profile` (the profiler
 hook is not ported), `--mesh_data` other than 0 (the port serves on one
-card), `--plot` (PNG plots are not ported), ONNX checkpoints (the ONNX
-importer is not ported) and orbax checkpoint directories (they need JAX);
-a serving checkpoint is an npz in the Flax layout.
+card), `--plot` (PNG plots are not ported) and orbax checkpoint directories
+of the JAX package (they need JAX; its `export` writes them as npz or ONNX).
 """
 
 from __future__ import annotations
@@ -190,28 +204,53 @@ def _check_serving_flags(args) -> None:
     if getattr(args, "plot", False):
         raise CliError(
             "--plot: PNG plots (_save_plots) are not ported to the PyTorch package "
-            "(ROADMAP.md Queue 1, utilities); the FITS products are written"
+            "(ROADMAP.md Queue 1 item 9, utilities); the FITS products are written"
         )
+
+
+def _is_fit_dir(path: Path) -> bool:
+    """A checkpoint directory the port's `fit` wrote (`train/checkpoints.py`)."""
+    return (path / "best.json").exists() or (path / "ckpts" / "index.json").exists()
+
+
+def _fit_dir_weights(ckpt: Path, model):
+    """The best checkpoint of a port fit directory -> (the model's Flax
+    arrays, flat and '/'-keyed, in the model's layout; the checkpoint's step)."""
+    from .infer.onnx_import import flatten_tree
+    from .train.checkpoints import CheckpointManager
+    from .utils.weights import flax_tree
+
+    state, step = CheckpointManager(ckpt).best_model_state()
+    model.load_state_dict(state)
+    tree = flax_tree(model.state_dict(), scan_layers=getattr(model, "scan_layers", False))
+    return dict(flatten_tree(tree)), step
 
 
 def _load_checkpoint(ckpt: Path, model):
-    """npz checkpoint in the Flax layout -> the model's Flax arrays."""
-    from .utils.weights import load_params_npz
+    """A serving checkpoint -> the model's Flax arrays, flat and '/'-keyed
+    without the `params` root: an npz in the Flax layout, an ONNX file, or a
+    port fit directory (its best checkpoint)."""
+    from .infer.onnx_import import flatten_tree, import_onnx_params
+    from .utils.weights import flax_tree, load_params_npz
 
     if ckpt.is_dir():
+        if _is_fit_dir(ckpt):
+            return _fit_dir_weights(ckpt, model)[0]
         raise CliError(
-            f"--checkpoint {ckpt}: an orbax checkpoint directory needs JAX; export it "
-            "to npz with the JAX package's `cli.py export --out weights.npz`"
+            f"--checkpoint {ckpt}: not a directory the port's `fit` wrote (an orbax "
+            "checkpoint directory needs JAX; export it with the JAX package's "
+            "`cli.py export --out weights.npz` or `--out weights.onnx`)"
         )
-    if ckpt.suffix == ".onnx":
-        raise CliError(
-            f"--checkpoint {ckpt}: ONNX checkpoints are not read by the PyTorch port "
-            "yet (ROADMAP.md Queue 1 item 7, ONNX); pass an npz"
-        )
-    if ckpt.suffix != ".npz":
-        raise CliError(f"--checkpoint {ckpt}: expected an .npz file")
     if not ckpt.exists():
         raise CliError(f"--checkpoint {ckpt}: no such file")
+    if ckpt.suffix == ".onnx":
+        template = flax_tree(model.state_dict(), scan_layers=getattr(model, "scan_layers", False))
+        try:
+            return dict(flatten_tree(import_onnx_params(ckpt, template)))
+        except ValueError as e:  # unmatched or ambiguous initializers
+            raise CliError(f"--checkpoint {ckpt}: {e}") from e
+    if ckpt.suffix != ".npz":
+        raise CliError(f"--checkpoint {ckpt}: expected an .npz or .onnx file or a fit directory")
     return load_params_npz(ckpt, model)
 
 
@@ -400,10 +439,98 @@ def _restore_stop_signals(prev: dict) -> None:
             pass
 
 
+def cmd_end2end(args) -> int:
+    """obsid PPS dir -> detxy -> SR/DN products (the reference's
+    inference_end2end_obsid.py), through the serving engine of `infer`."""
+    from .infer.end2end import run_end2end
+
+    engine, ds_cfg, m_cfg, save_scales = _build_engine(args)
+    result = run_end2end(
+        Path(args.pps), engine, Path(args.out),
+        hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
+        instrument=args.instrument, max_expo_ks=args.max_expo, use_sas=args.use_sas,
+    )
+    save_scales()
+    print(json.dumps({k: str(v) for k, v in result.items()}))
+    return 0
+
+
+def cmd_detxy(args) -> int:
+    """PPS dir -> detxy image FITS (and its radec companion), on the host."""
+    from .infer.end2end import detxy_for_obsid
+
+    out = detxy_for_obsid(
+        Path(args.pps), Path(args.out), instrument=args.instrument,
+        max_expo_ks=args.max_expo, use_sas=args.use_sas,
+    )
+    print(json.dumps({"detxy": str(out)}))
+    return 0
+
+
+def cmd_export(args) -> int:
+    """The best checkpoint of a port fit directory -> the deployment
+    formats: ONNX (the full runnable graph for the RRDB models, torch-named
+    initializers for the others) or a Flax-layout npz."""
+    from .models.registry import build_model
+    from .models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
+    from .utils.weights import save_params_npz
+
+    ckpt = Path(args.checkpoint)
+    if not (ckpt.is_dir() and _is_fit_dir(ckpt)):
+        raise CliError(
+            f"--checkpoint {ckpt}: expected the checkpoint directory a port `fit` wrote "
+            "(<checkpoint_root>/<model>; an orbax directory of the JAX package needs JAX)"
+        )
+    ds_cfg, m_cfg, _, _, _ = load_run_config(args.run_config)
+    lr = (ds_cfg.lr.res, ds_cfg.lr.res)
+    hr = (ds_cfg.hr.res, ds_cfg.hr.res) if ds_cfg.hr else lr
+    model = build_model(m_cfg, lr, hr)
+    _, step = _fit_dir_weights(ckpt, model)  # loads the best weights into `model`
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.suffix == ".onnx":
+        if isinstance(model, (GeneratorRRDB_SR, GeneratorRRDB_DN)):
+            from .infer.onnx_export import export_rrdb_onnx_model
+
+            export_rrdb_onnx_model(model, None, out)
+        else:
+            from .infer.onnx_import import export_onnx_params
+
+            export_onnx_params(model, out)
+    else:
+        save_params_npz(out, model)
+    print(json.dumps({"exported": str(out), "from_step": int(step)}))
+    return 0
+
+
+def cmd_verify(args) -> int:
+    """The real-weights parity gate (infer/verify.py): ONNX import, the
+    graph on an independent runtime vs the port's forward (pixel <= tol),
+    PSNR/SSIM per file, the int8 gate. Exit code 0 iff every gate passes."""
+    from .infer.verify import default_example_files, verify_onnx
+
+    device = _device(args)
+    ds_cfg, m_cfg, _, _, _ = load_run_config(args.run_config)
+    if args.data is not None:
+        files = sorted(Path(args.data).glob("*.fits*"))
+        if args.limit:
+            files = files[: args.limit]
+    else:
+        files = default_example_files(limit=args.limit)
+    if not files:
+        print(json.dumps({"error": "no input FITS files found"}))
+        return 2
+    report = verify_onnx(Path(args.onnx), ds_cfg, m_cfg, files, tol=args.tol,
+                         int8=not args.no_int8, device=device)
+    print(json.dumps(report, indent=2))
+    return 0 if report["passed"] else 1
+
+
 def _engine_flags(p: argparse.ArgumentParser) -> None:
     """The flags of every subcommand that builds an engine."""
     p.add_argument("--checkpoint", type=Path, required=True,
-                   help="npz checkpoint in the Flax layout")
+                   help="npz checkpoint in the Flax layout, ONNX file, or the "
+                        "directory a port `fit` wrote")
     p.add_argument("--run_config", type=Path, required=True)
     p.add_argument("--bf16", action="store_true",
                    help="bf16 serving mode (f32 is the parity mode)")
@@ -476,6 +603,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8572, help="TCP port (0 picks a free one)")
     _engine_flags(p)
     p.set_defaults(func=cmd_http)
+
+    p = sub.add_parser("export", help="export a fit directory's best checkpoint to onnx/npz")
+    p.add_argument("--checkpoint", type=Path, required=True,
+                   help="checkpoint directory a port `fit` wrote (<checkpoint_root>/<model>)")
+    p.add_argument("--out", type=Path, required=True, help=".onnx or .npz path")
+    p.add_argument("--run_config", type=Path, required=True)
+    p.set_defaults(func=cmd_export)
+
+    p = sub.add_parser("end2end", help="obsid PPS dir -> detxy -> SR/DN FITS products")
+    p.add_argument("--pps", type=Path, required=True)
+    p.add_argument("--out", type=Path, required=True)
+    p.add_argument("--instrument", default="pn")
+    p.add_argument("--max_expo", type=float, default=20.0)
+    p.add_argument("--use_sas", action="store_true")
+    p.add_argument("--plot", action="store_true", help="not ported: refused")
+    _engine_flags(p)
+    p.set_defaults(func=cmd_end2end)
+
+    p = sub.add_parser("verify", help="real-weights parity gate: an ONNX graph vs the "
+                                      "port's forward on FITS images (pixel <= tol, "
+                                      "PSNR/SSIM table, int8 fidelity)")
+    p.add_argument("--onnx", type=Path, required=True,
+                   help="ONNX checkpoint (e.g. XMM-SuperRes.onnx)")
+    p.add_argument("--run_config", type=Path, required=True)
+    p.add_argument("--data", type=Path, default=None,
+                   help="FITS directory (default: the real 20 ks example set, "
+                        "infer/verify.py: default_example_files)")
+    p.add_argument("--tol", type=float, default=1e-3, help="pixel-wise gate tolerance")
+    p.add_argument("--limit", type=int, default=None, help="cap the number of files")
+    p.add_argument("--no_int8", action="store_true",
+                   help="skip the int8 recalibration fidelity gate")
+    p.add_argument("--device", default="cuda:0",
+                   help="torch device of the forward and the lite runtime (default "
+                        "cuda:0; cpu runs the kernels' plain versions)")
+    p.set_defaults(func=cmd_verify)
+
+    p = sub.add_parser("detxy", help="event list -> detxy image (native or SAS), on the host")
+    p.add_argument("--pps", type=Path, required=True)
+    p.add_argument("--out", type=Path, required=True)
+    p.add_argument("--instrument", default="pn")
+    p.add_argument("--max_expo", type=float, default=20.0)
+    p.add_argument("--use_sas", action="store_true")
+    p.set_defaults(func=cmd_detxy)
     return parser
 
 

@@ -1,15 +1,17 @@
-"""Minimal, dependency-free FITS image reader/writer (numpy only).
+"""Minimal, dependency-free FITS reader/writer (numpy only).
 
-The port's own copy of the image half of the JAX package's codec
-(its `io/fits.py`): primary image HDUs, optional gzip,
-BSCALE/BZERO scaling, header cards with the long-string convention.
-Binary tables (event lists) are not part of the serving path and are not
-copied yet.
+The port's own copy of the JAX package's codec (its `io/fits.py`): primary
+image HDUs, optional gzip, BSCALE/BZERO scaling, header cards with the
+long-string convention, and binary tables (the event lists, rate curves,
+attitude and GTI tables of the obsid chain), read and written byte for byte
+as the JAX package does.
 
 * 2880-byte header blocks of 80-char ASCII cards, ``END`` terminated.
 * Big-endian data, BITPIX in {8, 16, 32, 64, -32, -64}.
 * ``BSCALE``/``BZERO`` linear scaling (used by XMM uint16-as-int16 images).
 * Transparent ``.gz`` handling by magic bytes.
+* Binary-table (``XTENSION='BINTABLE'``) column reads and single-table
+  writes with TLMIN/TLMAX bounds.
 
 Everything returns plain numpy; device placement happens downstream.
 """
@@ -37,6 +39,17 @@ _BITPIX_DTYPE = {
     64: np.dtype(">i8"),
     -32: np.dtype(">f4"),
     -64: np.dtype(">f8"),
+}
+
+# TFORM letter -> numpy big-endian dtype for binary tables.
+_TFORM_DTYPE = {
+    "L": np.dtype("u1"),
+    "B": np.dtype("u1"),
+    "I": np.dtype(">i2"),
+    "J": np.dtype(">i4"),
+    "K": np.dtype(">i8"),
+    "E": np.dtype(">f4"),
+    "D": np.dtype(">f8"),
 }
 
 _NUM_RE = re.compile(r"^[+-]?(\d+\.?\d*|\.\d+)([eEdD][+-]?\d+)?$")
@@ -230,6 +243,80 @@ def read_image(path: Union[str, Path, bytes], hdu: int = 0) -> Tuple[np.ndarray,
     return _image_from(hdr, raw), hdr
 
 
+def load_fits(path: Union[str, Path]) -> np.ndarray:
+    """Primary-HDU image as float32 with a leading channel axis (1, H, W)."""
+    img, _ = read_image(path)
+    return np.ascontiguousarray(img, dtype=np.float32)[None, ...]
+
+
+def read_bintable(
+    path: Union[str, Path, bytes],
+    columns: Optional[List[str]] = None,
+    extname: Optional[str] = None,
+    hdu: Optional[int] = None,
+) -> Tuple[Dict[str, np.ndarray], Header]:
+    """Read columns of a binary-table HDU (e.g. an XMM EVENTS extension).
+    Columns absent from the table are omitted; bit columns are skipped."""
+    hdus = read_hdus(path)
+    target = None
+    if hdu is not None:
+        target = hdus[hdu]
+    else:
+        for h, raw in hdus[1:]:
+            if h.get("XTENSION", "").strip() != "BINTABLE":
+                continue
+            if extname is None or h.get("EXTNAME", "").strip() == extname:
+                target = (h, raw)
+                break
+    if target is None:
+        raise ValueError(f"No BINTABLE HDU (extname={extname!r}) found")
+    hdr, raw = target
+
+    nrows = int(hdr["NAXIS2"])
+    rowlen = int(hdr["NAXIS1"])
+    ncols = int(hdr["TFIELDS"])
+
+    fields = []  # (name, dtype, repeat, offset)
+    offset = 0
+    for i in range(1, ncols + 1):
+        name = str(hdr[f"TTYPE{i}"]).strip()
+        tform = str(hdr[f"TFORM{i}"]).strip()
+        m = re.match(r"^(\d*)([LXBIJKAED])", tform)
+        if not m:
+            raise ValueError(f"Unsupported TFORM {tform!r}")
+        repeat = int(m.group(1)) if m.group(1) else 1
+        letter = m.group(2)
+        if letter == "X":  # bit array
+            fields.append((name, None, repeat, offset))
+            offset += (repeat + 7) // 8
+            continue
+        if letter == "A":
+            fields.append((name, np.dtype(f"S{repeat}"), 1, offset))
+            offset += repeat
+            continue
+        dt = _TFORM_DTYPE[letter]
+        fields.append((name, dt, repeat, offset))
+        offset += dt.itemsize * repeat
+    if offset != rowlen:
+        raise ValueError(f"Row length mismatch: computed {offset}, NAXIS1={rowlen}")
+
+    table_raw = np.frombuffer(raw[: nrows * rowlen], dtype=np.uint8).reshape(nrows, rowlen)
+    out: Dict[str, np.ndarray] = {}
+    for name, dt, repeat, off in fields:
+        if columns is not None and name not in columns:
+            continue
+        if dt is None:
+            continue  # bit columns are not needed
+        width = dt.itemsize * (repeat if dt.kind != "S" else 1)
+        # one strided gather and a zero-copy view (not .tobytes(), which
+        # would copy the column a second time)
+        col = np.ascontiguousarray(table_raw[:, off : off + width]).view(dt)
+        col = col.reshape(nrows, repeat) if (repeat > 1 and dt.kind != "S") \
+            else col.reshape(nrows)
+        out[name] = col
+    return out, hdr
+
+
 # ---------------------------------------------------------------------------
 # Writing
 # ---------------------------------------------------------------------------
@@ -291,6 +378,97 @@ def _format_card(key: str, value: Any, comment: str = "") -> str:
     if comment:
         card = f"{card} / {comment}"
     return card[:CARD].ljust(CARD)
+
+
+_NP_TFORM = {
+    np.dtype(np.float64): ("D", np.dtype(">f8")),
+    np.dtype(np.float32): ("E", np.dtype(">f4")),
+    np.dtype(np.int64): ("K", np.dtype(">i8")),
+    np.dtype(np.int32): ("J", np.dtype(">i4")),
+    np.dtype(np.int16): ("I", np.dtype(">i2")),
+    np.dtype(np.uint8): ("B", np.dtype("u1")),
+}
+
+
+def write_bintable(
+    path: Union[str, Path],
+    columns: Dict[str, np.ndarray],
+    extname: str = "EVENTS",
+    header: Optional[Dict[str, Any]] = None,
+    column_limits: Optional[Dict[str, Tuple[int, int]]] = None,
+    primary_header: Optional[Dict[str, Any]] = None,
+) -> Path:
+    """Write a single-BINTABLE FITS file (primary HDU + table extension):
+    scalar columns of f8/f4/i8/i4/i2/u1 (anything else as f8), EXTNAME,
+    per-column TLMIN/TLMAX bounds; gzip when the name ends in `.gz`."""
+    path = Path(path)
+    names = list(columns)
+    arrs = []
+    tforms = []
+    for name in names:
+        a = np.asarray(columns[name])
+        if a.dtype not in _NP_TFORM:
+            a = a.astype(np.float64)
+        letter, be = _NP_TFORM[a.dtype]
+        arrs.append(np.ascontiguousarray(a.astype(be)))
+        tforms.append(letter)
+    nrows = len(arrs[0]) if arrs else 0
+    rowlen = sum(a.dtype.itemsize for a in arrs)
+
+    cards = [
+        _format_card("SIMPLE", True),
+        _format_card("BITPIX", 8),
+        _format_card("NAXIS", 0),
+        _format_card("EXTEND", True),
+    ]
+    if primary_header:
+        for k, v in primary_header.items():
+            cards.append(_format_card(str(k).upper()[:8], v))
+    cards.append("END".ljust(CARD))
+    pblock = "".join(cards).encode("ascii")
+    pblock += b" " * (_padded(len(pblock)) - len(pblock))
+
+    tcards = [
+        _format_card("XTENSION", "BINTABLE"),
+        _format_card("BITPIX", 8),
+        _format_card("NAXIS", 2),
+        _format_card("NAXIS1", rowlen),
+        _format_card("NAXIS2", nrows),
+        _format_card("PCOUNT", 0),
+        _format_card("GCOUNT", 1),
+        _format_card("TFIELDS", len(names)),
+    ]
+    for i, (name, tf) in enumerate(zip(names, tforms), start=1):
+        tcards.append(_format_card(f"TTYPE{i}", name))
+        tcards.append(_format_card(f"TFORM{i}", tf))
+        if column_limits and name in column_limits:
+            lo, hi = column_limits[name]
+            tcards.append(_format_card(f"TLMIN{i}", int(lo)))
+            tcards.append(_format_card(f"TLMAX{i}", int(hi)))
+    tcards.append(_format_card("EXTNAME", extname))
+    if header:
+        comments = getattr(header, "comments", {})
+        for k, v in header.items():
+            tcards.append(_format_card(str(k).upper()[:8], v, comments.get(k, "")))
+    tcards.append("END".ljust(CARD))
+    tblock = "".join(tcards).encode("ascii")
+    tblock += b" " * (_padded(len(tblock)) - len(tblock))
+
+    rows = np.empty((nrows, rowlen), np.uint8)
+    off = 0
+    for a in arrs:
+        w = a.dtype.itemsize
+        rows[:, off : off + w] = a.view(np.uint8).reshape(nrows, w)
+        off += w
+    data = rows.tobytes()
+    data += b"\x00" * (_padded(len(data)) - len(data))
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    blob = pblock + tblock + data
+    if path.name.endswith(".gz"):
+        blob = gzip.compress(blob, _GZIP_LEVEL)
+    path.write_bytes(blob)
+    return path
 
 
 def write_image(

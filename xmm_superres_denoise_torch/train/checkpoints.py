@@ -150,14 +150,29 @@ class CheckpointManager:
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
         return load_snapshot(state, payload), int(step)
 
-    def restore_best(self, state) -> Tuple[Any, int]:
+    def best_step(self) -> int:
+        """The step of the best checkpoint (best.json, else the lowest
+        finite val/loss kept)."""
         meta = self.best_metadata()
         if meta is None:
             finite = {s: v for s, v in self._index().items() if math.isfinite(v)}
             if not finite:
                 raise FileNotFoundError(f"No best checkpoint under {self.root}")
-            return self.restore(state, min(finite, key=lambda s: (finite[s], s)))
-        return self.restore(state, meta["step"])
+            return min(finite, key=lambda s: (finite[s], s))
+        return int(meta["step"])
+
+    def restore_best(self, state) -> Tuple[Any, int]:
+        return self.restore(state, self.best_step())
+
+    def best_model_state(self) -> Tuple[Dict[str, torch.Tensor], int]:
+        """The best checkpoint's model state dict (CPU tensors, keyed by the
+        generator's own names) and its step, without an optimizer: what
+        serving and `export` read from a fit directory."""
+        step = self.best_step()
+        if not self._path(step).exists():
+            raise FileNotFoundError(f"No checkpoint {step} under {self.root}")
+        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        return payload["model"], step
 
     def save_emergency(self, payload: Dict[str, Any]) -> Path:
         """Write one crash snapshot (a `snapshot` payload), apart from the
