@@ -38,6 +38,7 @@ from xmm_superres_denoise_torch import cli as tcli
 from xmm_superres_denoise_torch.io.fits import read_image, write_image
 from xmm_superres_denoise_torch.models.registry import build_model
 from xmm_superres_denoise_torch.ops import int8_forward
+from xmm_superres_denoise_torch.utils import profiling as tprof
 from xmm_superres_denoise_torch.utils.fingerprint import params_fingerprint
 from xmm_superres_denoise_torch.utils.weights import flax_tree, load_params_npz
 from xmm_superres_denoise_tpu import cli as jcli
@@ -245,8 +246,9 @@ def _onnx(tmp_path):
 
 REFUSALS = {
     "unmatched-pattern": (lambda tmp, tp: [tmp / "det*.fist"], (), "no input files matched"),
-    "mesh_data": (lambda tmp, tp: [tmp / "det0.fits"], ("--mesh_data", 2), "one card"),
-    "plot": (lambda tmp, tp: [tmp / "det0.fits"], ("--plot",), "--plot"),
+    "mesh_data": (lambda tmp, tp: [tmp / "det0.fits"], ("--mesh_data", -2), "--mesh_data -2"),
+    # --plot without matplotlib: refused before serving
+    "plot": (lambda tmp, tp: [tmp / "det0.fits"], ("--plot", "NO_MATPLOTLIB"), "needs matplotlib"),
     # an ONNX checkpoint is read; one whose initializers do not form the model is refused
     "onnx": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ONNX"), "ONNX import"),
     "orbax": (lambda tmp, tp: [tmp / "det0.fits"], ("--checkpoint", "ORBAX"), "needs JAX"),
@@ -258,6 +260,9 @@ def test_refused_requests_exit_2_before_serving(setup, tmp_path, monkeypatch, ca
     tmp, run = setup
     files, flags, message = REFUSALS[case]
     made = {"ONNX": _onnx, "ORBAX": _orbax_dir}
+    if "NO_MATPLOTLIB" in flags:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        flags = [f for f in flags if f != "NO_MATPLOTLIB"]
     flags = [made[f](tmp_path) if f in made else f for f in flags]
     served = []
     monkeypatch.setattr("xmm_superres_denoise_torch.infer.run_file.serve_files",
@@ -408,10 +413,42 @@ def test_fit_then_test_prints_the_jax_clis_keys(tmp_path, monkeypatch):
 
 
 FIT_REFUSALS = {
-    "profile": (("--profile", "prof"), {}, "Queue 1 item 9"),
-    "images": ((), {"log_images_every_n_epochs": 1}, "Queue 1 item 9"),
     "tpu": ((), {"accelerator": '"tpu"'}, "CUDA card or the CPU"),
 }
+
+
+def test_fit_profile_traces_the_fit_and_logs_images(tmp_path, monkeypatch):
+    """`fit --profile DIR` with `log_images_every_n_epochs = 1`: a Chrome
+    trace of the fit's first train steps in DIR (here one), and the epoch's
+    display panel and FITS."""
+    pytest.importorskip("matplotlib")
+    run = _train_run_config(tmp_path, log_images_every_n_epochs=1)
+    monkeypatch.setattr(tcli, "load_run_config", _small_model(tcli.load_run_config))
+    monkeypatch.setattr(tcli, "FIT_PROFILE_STEPS", 1)
+    real_trace, fit_steps = tprof.trace, []
+
+    @contextlib.contextmanager
+    def counted_trace(*a, **k):
+        with real_trace(*a, **k) as step:
+            yield lambda: (fit_steps.append(1), step())
+
+    monkeypatch.setattr(tprof, "trace", counted_trace)
+    monkeypatch.chdir(tmp_path)
+    rc, logs = _run_json(tcli.main, ["fit", run, "--no-extended", "--profile", tmp_path / "prof",
+                                     "--device", "cpu"])
+    assert rc == 0 and "test/loss" in logs
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    images = sorted(p.name for p in (tmp_path / "ckpts/esr_gen/images/epoch_00000").iterdir())
+    print(f"fit --profile: {trace.name}, {trace.stat().st_size} bytes, {len(events)} events; "
+          f"images {images}")
+    assert any(e.get("name") == "aten::convolution" for e in events)
+    steps = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith("Optimizer.step#"))
+    print(f"fit --profile, window of 1 train step of the fit's {len(fit_steps)}: optimizer "
+          f"steps traced {steps}")
+    assert len(steps) == 1 < len(fit_steps)  # the trace window, not the whole fit
+    assert "display.png" in images and "display_0_generated.fits.gz" in images
 
 
 @pytest.mark.parametrize("case", list(FIT_REFUSALS))

@@ -198,7 +198,7 @@ def test_bf16_engine_tracks_f32(flat):
     [
         (dict(quantize=True, int8_scales={"conv_first": 1.0}), ValueError),
         (dict(int8_scales={}), ValueError),
-        (dict(mesh=object()), NotImplementedError),
+        (dict(mesh=object()), TypeError),  # not a sequence of devices
         (dict(dtype=torch.float16), ValueError),
         (dict(crop_p=0.0), ValueError),
     ],

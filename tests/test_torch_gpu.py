@@ -26,6 +26,11 @@ K3 runs at Cin % 128 == 0 the s8 twin of K1's wgmma level and otherwise
 inside: each fused variant must equal, bit for bit, its plain composition
 (the float64 convolution and the torch epilogue) run on the card.
 
+Serving: two replicas of the engine on one card (a mesh of ("cuda:0",
+"cuda:0")) against one card in f32, bf16 and int8; every kernel's entry
+point restoring the caller's current device; the engine's chunks in
+flight bitwise equal to one chunk at a time.
+
 Training and evaluation: the full-width model's 130 parameter gradients
 through K2 (the dense block's autograd route) against the CPU model's, in
 f32 within 1e-4 x max|g| and in bf16 finite; K1's gradient route
@@ -1066,3 +1071,92 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         torch.backends.cudnn.deterministic = deterministic
     assert torch.equal(la, lb)
     assert all(torch.equal(p, q) for p, q in zip(a.module.parameters(), b.module.parameters()))
+
+
+def _engine_on_card(devices, dtype=torch.float32, quantize=False):
+    """The trained esr_gen engine at 32^2 -> 64^2 on `devices` (a mesh when
+    there are several)."""
+    from xmm_superres_denoise_torch.config import schema as tcfg
+    from xmm_superres_denoise_torch.infer.run_file import InferenceEngine
+
+    ds = tcfg.DatasetCfg(lr=tcfg.LrDatasetCfg(bkg=0, exps=[20], clamp_max=0.0022336, res=32),
+                         hr=tcfg.HrDatasetCfg(exp=100, clamp_max=0.0005584, res=64),
+                         scaling="sqrt", type="boring")
+    mc = tcfg.ModelCfg(name="esr_gen", model={"base_model": "esr_gen"})
+    mesh = tuple(devices) if len(devices) > 1 else None
+    return InferenceEngine(mc, ds, params_from_flax(PARAMS), dtype=dtype, quantize=quantize,
+                           mesh=mesh, device=devices[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_two_replicas_on_one_card_match_one_card(cuda, mode):
+    """A mesh of ("cuda:0", "cuda:0") against the single-card engine on the
+    same batches: 5 tiles at batch 4 (a padded shard pair, then a batch of
+    1 on mesh[0]). Each replica's shard runs its own model copy on K2 (K3
+    in int8, built after one calibration on mesh[0] over the whole first
+    batch); the products must be bitwise equal where the per-shard batch
+    gives cuDNN the same work, and at most 2e-5 x hr clamp_max apart
+    otherwise (the smoke's serving class)."""
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    raw = np.random.default_rng(40).uniform(0, 2e-3, (5, 30, 28)).astype(np.float32)
+    single = _engine_on_card([cuda], dtype, quantize=mode == "int8")
+    mesh = _engine_on_card([cuda, cuda], dtype, quantize=mode == "int8")
+    counter = conv_i8 if mode == "int8" else dense_block
+    want = single.predict_tiles(raw, batch_size=4)
+    before = counter.launches
+    got, inp = mesh.run_tiles(raw, batch_size=4)
+    launches = counter.launches - before
+    err = float(np.abs(got - want).max())
+    print(f"mesh of two replicas on {cuda}, {mode}: max|mesh - one card| {err:.3e} "
+          f"(bitwise {np.array_equal(got, want)}), launches {launches}")
+    assert got.shape == (5, 64, 64) and inp.shape == (5, 32, 32) and np.isfinite(got).all()
+    assert launches == (64 if mode == "int8" else 60) * 3  # two shards, then the tail of 1
+    assert err <= 2e-5 * 0.0005584
+    if mode == "int8":
+        assert mesh.int8_scales == single.int8_scales
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+def test_kernels_restore_the_callers_current_device(cuda):
+    """Each kernel's entry point sets its tensors' card and restores the
+    caller's current device on return: launched on every visible card at an
+    explicit index while the current device is 0 (on a one-card machine,
+    index 0 only)."""
+    g = np.random.default_rng(41)
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(0):
+            x, ws = _block_inputs((1, 16, 16, 32), torch.float32, dev, seed=i)
+            with true_f32():
+                dense_block(x, *ws)
+            assert torch.cuda.current_device() == 0
+            x, ws = _block_inputs((1, 16, 16, 128), torch.bfloat16, dev, seed=i)
+            dense_block_s2d(x, pack_weights(ws[0::2], ws[1::2], torch.bfloat16), h_strip=16,
+                            w_tile=16)
+            assert torch.cuda.current_device() == 0
+            a = torch.from_numpy(g.integers(-127, 128, PROBE_SHAPE[:2]).astype(np.int8)).to(dev)
+            bb = torch.from_numpy(g.integers(-127, 128, PROBE_SHAPE[1:]).astype(np.int8)).to(dev)
+            int8_gemm(a, bb)
+            assert torch.cuda.current_device() == 0
+            conv_i8(_int8((1, 8, 8, 32), g).to(dev), _int8((3, 3, 32, 128), g).to(dev))
+            torch.cuda.synchronize(dev)
+            assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chunks_in_flight_equal_one_chunk_at_a_time(cuda, dtype, monkeypatch):
+    """`_INFLIGHT` = 2 chunks queued ahead of the readback (pinned buffers,
+    non-blocking copies, one event per chunk) against reading each chunk
+    back before the next is launched: bitwise the same products."""
+    raw = np.random.default_rng(42).uniform(0, 2e-3, (9, 30, 28)).astype(np.float32)
+    engine = _engine_on_card([cuda], dtype)
+    pipelined, inputs = engine.run_tiles(raw, batch_size=2)
+    monkeypatch.setattr(engine, "_INFLIGHT", 0)
+    one_at_a_time, inputs0 = engine.run_tiles(raw, batch_size=2)
+    np.testing.assert_array_equal(pipelined, one_at_a_time)
+    np.testing.assert_array_equal(inputs, inputs0)
+    whole, _ = engine(raw[:2])
+    np.testing.assert_array_equal(pipelined[:2], whole)

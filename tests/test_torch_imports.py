@@ -2,6 +2,8 @@
 
 The port must run on a machine with PyTorch and numpy but without jax, flax,
 pydantic or matplotlib, and must import nothing of the JAX package.
+matplotlib is optional: the PNG plots and the image logger's panels import
+it inside the function that draws, never at a module's top level.
 """
 
 import os
@@ -44,7 +46,8 @@ def test_importing_every_port_module_pulls_in_no_jax_pydantic_or_matplotlib():
 
 
 _IMPORT = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|pydantic|matplotlib|xmm_superres_denoise_tpu)\b", re.M
+    r"^\s*(import|from)\s+(jax|flax|pydantic|xmm_superres_denoise_tpu)\b"
+    r"|^(import|from)\s+matplotlib\b", re.M
 )
 
 
@@ -59,6 +62,22 @@ def test_port_sources_name_no_jax_package(path):
     text = (ROOT / path).read_text()
     assert "xmm_superres_denoise_tpu" not in text
     assert not _IMPORT.search(text)
+
+
+def test_utils_and_run_file_load_neither_matplotlib_nor_the_profiler():
+    code = (
+        "import sys\n"
+        "import xmm_superres_denoise_torch.utils, xmm_superres_denoise_torch.infer.run_file\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'matplotlib' or m in (\n"
+        "    'xmm_superres_denoise_torch.utils.profiling',\n"
+        "    'xmm_superres_denoise_torch.utils.imagelogger', 'torch.utils.flop_counter'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_chip_smoke_imports_no_jax():

@@ -10,19 +10,18 @@
 * `fit` then `test` of the same cut SwinIR on the JAX CLI tests' boring
   dataset (104^2 -> 208^2, one epoch): finite losses, the files a fit
   leaves, `test` equal to fit's test.
-* The refusals that name a ROADMAP.md Queue 1 item name the item it is now:
-  multi-device serving is item 8, PNG plots item 9.
+* A SwinIR serves on a data mesh of replicas as on one device.
 """
 
 import importlib
 import json
-import logging
 import math
 from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
 from _torch_zoo_common import jax_init
@@ -136,19 +135,28 @@ def test_fit_then_test_a_cut_swinir(tmp_path, cut, monkeypatch):
     assert rc == 0 and test_logs == fit_logs
 
 
-def test_refusal_messages_name_their_roadmap_items(setup, tmp_path, caplog):
-    base = ["serve", setup / "det0.fits", "--out", tmp_path / "out", "--run_config", RUN,
-            "--device", "cpu"]
-    for flags, item in ((["--checkpoint", setup / "swinir.npz", "--mesh_data", 2], "item 8"),
-                        (["--checkpoint", setup / "swinir.npz", "--plot"], "item 9")):
-        caplog.clear()
-        with caplog.at_level(logging.ERROR, logger="xmmsr"):
-            rc, _ = _run(tcli.main, [*base, *flags])
-        assert rc == 2 and f"ROADMAP.md Queue 1 {item}" in caplog.text, caplog.text
-    mc = tcfg.ModelCfg(name="rrdb_denoise", model={"base_model": "rrdb_denoise", "filters": 4,
-                                                   "residual_blocks": 1})
-    ds = tcfg.DatasetCfg(lr=dict(exps=[20], clamp_max=LR_MAX, res=16))
-    state = build_model(mc, (16, 16), (16, 16)).state_dict()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        InferenceEngine(mc, ds, state, mesh=object(), device="cpu")
-    assert not (tmp_path / "out").exists()
+def test_a_zoo_model_serves_on_a_mesh_as_on_one_device():
+    """A SwinIR (embed 12, window 8, at 24^2 -> 48^2) through the engine on
+    a mesh of two replicas on the host, batches of 1 and 3 (padded to 4 and
+    trimmed): the predictions within rtol 1e-6 / atol 1e-7 of one device's
+    (the bound of tests/test_torch_mesh_serving.py); each replica holds its
+    own copy of the transformer."""
+    mc = tcfg.ModelCfg(name="swinir", model=dict(
+        base_model="swinir", img_size=24, patch_size=8, window_size=8, embed_dim=12,
+        num_heads=[2], depths=[1]))
+    ds = tcfg.DatasetCfg(lr=dict(exps=[20], clamp_max=LR_MAX, res=24),
+                         hr=dict(exp=100, clamp_max=HR_MAX, res=48), scaling="sqrt")
+    model = build_model(mc, (24, 24), (48, 48))
+    model.reset_parameters(torch.Generator().manual_seed(2))
+    state = model.state_dict()
+    one = InferenceEngine(mc, ds, state, device="cpu")
+    mesh = InferenceEngine(mc, ds, state, mesh=("cpu", "cpu"))
+    assert mesh._replicas[0].model is not mesh._replicas[1].model
+    for b in (1, 3):
+        raw = np.random.default_rng(b).uniform(0, 2e-3, (b, 22, 20)).astype(np.float32)
+        (p1, i1), (pm, im) = one(raw), mesh(raw)
+        print(f"swinir on a mesh of 2, batch {b}: max|mesh - one device| "
+              f"{np.abs(pm - p1).max():.3e} (rtol 1e-6, atol 1e-7)")
+        assert pm.shape == (b, 48, 48) and np.abs(pm).max() > 0
+        np.testing.assert_allclose(pm, p1, rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(im, i1)

@@ -39,15 +39,27 @@ process per card) `fit` and `test` run data parallel: DDP, or FSDP2 when
 `utils/fingerprint.py`, whose digest is the JAX package's: one scales file
 serves both packages.
 
-Refused with exit code 2 and a message: `fit --profile` (the profiler
-hook is not ported), `--mesh_data` other than 0 (the port serves on one
-card), `--plot` (PNG plots are not ported) and orbax checkpoint directories
-of the JAX package (they need JAX; its `export` writes them as npz or ONNX).
+`--mesh_data N` serves each batch over a data axis of N local cards from
+this one process (`parallel/mesh.py: serving_devices`; -1 takes every card,
+0 or 1 one card; with `--device cpu`, N replicas on the host), as the JAX
+package's `--mesh_data` does. `--plot` adds the products' PNGs (it needs
+matplotlib). `fit --profile DIR` writes a torch.profiler trace of the fit
+into DIR (`utils/profiling.py: trace`), from the fit's start to the end of
+its first `FIT_PROFILE_STEPS` train steps (JAX's `--profile` traces the
+whole fit): torch.profiler holds every event in host memory until it writes
+the trace, and one train step of the shipped RRDB config makes hundreds of
+thousands.
+
+Refused with exit code 2 and a message: orbax checkpoint directories of the
+JAX package (they need JAX; its `export` writes them as npz or ONNX), a
+`--mesh_data` asking for more cards than are visible, and `--plot` without
+matplotlib.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import json
@@ -63,6 +75,9 @@ from .config.schema import RES_DIR, TrainerCfg
 from .config.schema import load_run_config as load_dataset_and_model
 
 log = logging.getLogger("xmmsr")
+
+# the train steps `fit --profile` traces
+FIT_PROFILE_STEPS = 3
 
 
 class CliError(Exception):
@@ -108,10 +123,6 @@ def _build_trainer(args):
     from .train.loop import Trainer
     from .train.loss import create_loss
 
-    if getattr(args, "profile", None) is not None:
-        raise CliError(
-            "--profile: the profiler hook (utils/profiling.py) is not ported to the PyTorch "
-            "package (ROADMAP.md Queue 1 item 9, utilities)")
     device = _device(args)
     local_rank = initialize_distributed(device.type)
     if local_rank is not None and device.type == "cuda":
@@ -175,7 +186,14 @@ def cmd_fit(args) -> int:
     trainer, t_cfg = _build_trainer(args)
     if is_primary():
         _snapshot_run_config(trainer, args.run_config)
-    result = trainer.fit(seed=t_cfg.seed, resume=t_cfg.checkpoint_path is not None)
+    ctx = contextlib.nullcontext()
+    if args.profile is not None:  # a trace of the fit's first train steps
+        from .utils.profiling import trace
+
+        ctx = trace(args.profile, steps=FIT_PROFILE_STEPS)
+    with ctx as step:
+        trainer.step_callback = step
+        result = trainer.fit(seed=t_cfg.seed, resume=t_cfg.checkpoint_path is not None)
     log.info("fit done: best val/loss %.5f at epoch %d", result.best_val_loss, result.best_step)
     # test as `test` does, from a fresh data module: a composite dataset
     # draws its AGN and background files from one generator in sample order,
@@ -194,18 +212,30 @@ def cmd_test(args) -> int:
     return 0
 
 
-def _check_serving_flags(args) -> None:
-    if getattr(args, "mesh_data", 0):
-        raise CliError(
-            f"--mesh_data {args.mesh_data}: the PyTorch port serves on one card "
-            "(multi-device serving is not ported; ROADMAP.md Queue 1 item 8, "
-            "multi-device serving)"
-        )
+def _check_plot(args) -> None:
+    """`--plot` draws with matplotlib: without it, refuse before serving
+    rather than fail after the first products."""
     if getattr(args, "plot", False):
-        raise CliError(
-            "--plot: PNG plots (_save_plots) are not ported to the PyTorch package "
-            "(ROADMAP.md Queue 1 item 9, utilities); the FITS products are written"
-        )
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise CliError(f"--plot needs matplotlib ({e}); the FITS products need none") from e
+
+
+def _serving_mesh(args, device: torch.device):
+    """`--mesh_data` -> the engine's mesh: None for one device (0 or 1),
+    else the data axis of `serving_devices`."""
+    from .parallel.mesh import serving_devices
+
+    n = int(getattr(args, "mesh_data", 0) or 0)
+    if n in (0, 1):
+        return None
+    try:
+        mesh = serving_devices(n, device.type)
+    except ValueError as e:
+        raise CliError(f"--mesh_data {n}: {e}") from e
+    log.info("serving mesh: %s", {"data": len(mesh), "devices": [str(d) for d in mesh]})
+    return mesh
 
 
 def _is_fit_dir(path: Path) -> bool:
@@ -290,8 +320,9 @@ def _build_engine(args):
     from .utils.fingerprint import params_fingerprint
     from .utils.weights import flax_tree, params_from_flax
 
-    _check_serving_flags(args)
+    _check_plot(args)
     device = _device(args)
+    mesh = _serving_mesh(args, device)
     ds_cfg, m_cfg, _, _, _ = load_run_config(args.run_config)
     lr = (ds_cfg.lr.res, ds_cfg.lr.res)
     hr = (ds_cfg.hr.res, ds_cfg.hr.res) if ds_cfg.hr else lr
@@ -307,7 +338,7 @@ def _build_engine(args):
             m_cfg, ds_cfg, params_from_flax(flat, model), det_mask=mask,
             dtype=torch.bfloat16 if args.bf16 else torch.float32,
             crop_p=getattr(args, "crop_p", 1.0), quantize=args.int8,
-            int8_scales=scales, device=device,
+            int8_scales=scales, mesh=mesh, device=device,
         )
     except ValueError as e:  # what the engine refuses (int8 of a transformer, say)
         raise CliError(str(e)) from e
@@ -332,7 +363,7 @@ def cmd_infer(args) -> int:
     engine, ds_cfg, m_cfg, save_scales = _build_engine(args)
     p_in, p_pred = infer_file(
         Path(args.fits), engine, Path(args.out),
-        hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
+        hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value, plot=args.plot,
     )
     save_scales()
     print(json.dumps({"input": str(p_in), "prediction": str(p_pred)}))
@@ -361,7 +392,7 @@ def cmd_serve(args) -> int:
                 dirs, engine, Path(args.out),
                 hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
                 batch_size=args.batch, poll_s=args.poll, state_path=args.state,
-                stop=stop, max_polls=args.max_polls,
+                stop=stop, max_polls=args.max_polls, plot=args.plot,
             )
         finally:  # in-process callers keep their handlers
             _restore_stop_signals(prev)
@@ -387,7 +418,7 @@ def cmd_serve(args) -> int:
     results = serve_files(
         files, engine, Path(args.out),
         hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
-        batch_size=args.batch,
+        batch_size=args.batch, plot=args.plot,
     )
     save_scales()
     print(json.dumps([
@@ -449,6 +480,7 @@ def cmd_end2end(args) -> int:
         Path(args.pps), engine, Path(args.out),
         hr_exp_ks=_hr_exp_ks(ds_cfg), model_name=m_cfg.name.value,
         instrument=args.instrument, max_expo_ks=args.max_expo, use_sas=args.use_sas,
+        plot=args.plot,
     )
     save_scales()
     print(json.dumps({k: str(v) for k, v in result.items()}))
@@ -542,8 +574,9 @@ def _engine_flags(p: argparse.ArgumentParser) -> None:
                         "if it exists and matches, written after the first "
                         "batch's calibration otherwise")
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="accepted for compatibility with the JAX package; the "
-                        "port serves on one card, so only 0 is allowed")
+                   help="shard serving batches over a data axis of N local cards "
+                        "(0 = one device, -1 = every card; with --device cpu, N "
+                        "replicas on the host)")
     p.add_argument("--device", default="cuda:0",
                    help="torch device to serve on (default cuda:0; cpu runs "
                         "the kernels' plain versions)")
@@ -560,7 +593,11 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--no-extended", action="store_true",
                        help="test without the extended metric suite")
         if name == "fit":
-            p.add_argument("--profile", type=Path, default=None, help="not ported: refused")
+            p.add_argument("--profile", type=Path, default=None,
+                           help="write a torch.profiler trace of the fit into this "
+                                "directory, from its start to the end of its first "
+                                f"{FIT_PROFILE_STEPS} train steps (the profiler holds every "
+                                "event in host memory)")
         p.add_argument("--device", default="cuda:0",
                        help="torch device (default cuda:0; cpu runs the kernels' plain "
                             "versions; under torchrun each process takes cuda:<LOCAL_RANK>)")
@@ -569,7 +606,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("infer", help="run SR/DN inference on a detxy FITS")
     p.add_argument("--fits", type=Path, required=True)
     p.add_argument("--out", type=Path, required=True)
-    p.add_argument("--plot", action="store_true", help="not ported: refused")
+    p.add_argument("--plot", action="store_true",
+                   help="also write PNG plots of the products (needs matplotlib)")
     p.add_argument("--crop_p", type=float, default=1.0,
                    help="crop fraction applied after padding, origin per the "
                         "dataset crop_mode (1.0 = no crop)")
@@ -581,7 +619,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("fits", nargs="+", help="detxy FITS paths or glob patterns")
     p.add_argument("--out", type=Path, required=True)
     p.add_argument("--batch", type=int, default=32, help="device batch size")
-    p.add_argument("--plot", action="store_true", help="not ported: refused")
+    p.add_argument("--plot", action="store_true",
+                   help="also write PNG plots of the products (needs matplotlib)")
     p.add_argument("--watch", action="store_true",
                    help="daemon mode: the positional arguments are directories; "
                         "new stable FITS files are served as they appear "
@@ -617,7 +656,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--instrument", default="pn")
     p.add_argument("--max_expo", type=float, default=20.0)
     p.add_argument("--use_sas", action="store_true")
-    p.add_argument("--plot", action="store_true", help="not ported: refused")
+    p.add_argument("--plot", action="store_true",
+                   help="also write PNG plots of the products (needs matplotlib)")
     _engine_flags(p)
     p.set_defaults(func=cmd_end2end)
 

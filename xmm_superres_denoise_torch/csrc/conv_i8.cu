@@ -47,6 +47,7 @@
 
 #include "conv3x3_igemm.cuh"
 #include "conv3x3_wgmma.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -202,8 +203,8 @@ int conv_i8(int device, const void* x8, int B, int H, int W, int src_stride, int
             const void* w, int cout, void* out, int out_stride, void* codes, int codes_stride,
             int raw, int bf16, const void* c_o, const void* bias, int lrelu, float slope,
             const void* res, int res_stride, float alpha, float qmul, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);  // the caller's device again on every return
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const Epilogue epi{out, out_stride, static_cast<int8_t*>(codes), codes_stride, raw, bf16,
                      static_cast<const float*>(c_o), static_cast<const float*>(bias),
                      lrelu, slope, res, res_stride, alpha, qmul};

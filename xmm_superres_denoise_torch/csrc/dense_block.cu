@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "conv3x3_f32.cuh"
+#include "device_guard.cuh"
 #include "dense_level_bf16.cuh"
 
 extern "C" {
@@ -63,8 +64,8 @@ int dense_block_level(int device, int dtype, const void* src, int B, int H,
                       int W, int src_stride, int cin, const void* w,
                       const void* bias, int C, void* dst, int dst_stride,
                       int residual, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);  // the caller's device again on every return
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return conv3x3_f32::launch(src, B, H, W, src_stride, cin, w, bias, C, dst,

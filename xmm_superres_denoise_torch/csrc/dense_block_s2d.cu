@@ -41,6 +41,7 @@
 // 5.7 ms in f32 at 67 TFLOP/s.
 
 #include "dense_level_bf16.cuh"
+#include "device_guard.cuh"
 
 extern "C" {
 
@@ -54,8 +55,8 @@ int dense_block_s2d_level(int device, const void* buf, int B, int H, int W,
                           int buf_stride, int cin, const void* w, const void* bias,
                           int C, void* dst, int dst_stride, int residual,
                           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);  // the caller's device again on every return
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   return dense_level_bf16::launch(buf, B, H, W, buf_stride, cin, w, bias, C, dst, dst_stride,
                                   residual, static_cast<cudaStream_t>(stream));
 }

@@ -29,6 +29,7 @@
 // stores; both into rows of 144 bytes, 18,432 B of static shared memory.
 // ptxas (nvcc 12.8, sm_90a): 70 registers, no spills.
 
+#include "device_guard.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -118,8 +119,8 @@ extern "C" {
 // cudaError_t of the launch (0 = cudaSuccess).
 int int8_gemm(int device, const void* a, const void* b, void* out, int M, int N, int K,
               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);  // the caller's device again on every return
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   int8_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),

@@ -8,7 +8,7 @@ given a PPS directory, derive GTIs, filter + bin events into the native
 
 Routing: the NATIVE pipeline (ops.events, binning on the host as in the JAX
 package); SAS subprocesses only when explicitly requested and available.
-PNG plots are not ported: `plot=True` is refused.
+`plot=True` adds the products' PNGs (`infer/run_file.py: write_products`).
 """
 
 from __future__ import annotations
@@ -121,17 +121,12 @@ def run_end2end(
     use_sas: bool = False,
 ) -> Dict[str, object]:
     """Full obsid chain with its latency breakdown in seconds (binning,
-    inference, total; host clock)."""
-    if plot:
-        raise ValueError(
-            "plot=True: PNG plots (_save_plots) are not ported to the PyTorch package "
-            "(ROADMAP.md Queue 1 item 9, utilities); the FITS products are written"
-        )
+    inference, total; host clock). `plot` adds the products' PNGs."""
     t0 = time.perf_counter()
     detxy = detxy_for_obsid(pps_dir, Path(out_dir) / "proc", instrument,
                             max_expo_ks, use_sas)
     t1 = time.perf_counter()
-    p_in, p_pred = infer_file(detxy, engine, out_dir, hr_exp_ks, model_name)
+    p_in, p_pred = infer_file(detxy, engine, out_dir, hr_exp_ks, model_name, plot=plot)
     t2 = time.perf_counter()
     return {
         "detxy": detxy,

@@ -1,4 +1,5 @@
-"""Single-file and batched inference: detxy FITS -> model -> SR/DN FITS.
+"""Single-file and batched inference: detxy FITS -> model -> SR/DN FITS
+(+ PNG plots).
 
 The port of the JAX package's `infer/run_file.py`. The engine's
 pipeline is the JAX one, step for step: mask -> pad -> (crop) -> normalize
@@ -9,11 +10,20 @@ the device is a card, a transformer of the zoo runs PyTorch's ops.
 `quantize=True` serves the RRDB models through the int8 space-to-depth
 forward (`ops/int8_forward.py`, every int8 convolution on the K3 kernel).
 
+`mesh` serves each batch over a data axis of devices, one model replica
+each, as JAX's `NamedSharding(mesh, P("data"))` does from one process.
+Chunks are pipelined: up to `_INFLIGHT` chunks' device work is queued
+ahead of the host readback of the oldest, which lands in pinned buffers
+through non-blocking copies, each guarded by a CUDA event.
+
 `serve_files` serves a set of files through one warm engine and
 `watch_and_serve` polls directories as a daemon; the HTTP service is
 `infer/http_server.py` and the command line `cli.py`, which also binds saved
-int8 scales to the checkpoint. Left out, and refused loudly rather than
-ignored: the device mesh (`mesh`). Products are FITS only: no PNG plots.
+int8 scales to the checkpoint. `plot=True` adds the 99.5-percentile plasma
+PNGs beside the products (matplotlib, imported when a plot is drawn). The
+port's library functions default to `plot=False`, the CLI's default in both
+packages: JAX's library functions default to True, and the port runs on
+machines without matplotlib.
 """
 
 from __future__ import annotations
@@ -21,9 +31,10 @@ from __future__ import annotations
 import json
 import logging
 import threading
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Mapping, Optional, Tuple, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,9 +52,44 @@ log = logging.getLogger("xmmsr")
 EXPOSURE_WINDOW_KS = (15.0, 25.0)  # training regime sanity band
 
 
+class _Replica:
+    """One entry of the data axis: a device with its own copy of the model,
+    the detector mask and (int8) the built forward."""
+
+    def __init__(self, device: torch.device, model: torch.nn.Module, mask):
+        self.device = device
+        self.model = model
+        self.mask = mask
+        self.forward_i8 = None
+
+
+class _Readback:
+    """The host copies of one launched chunk: per shard, its pinned output
+    buffers and the CUDA event recorded after their copies (None on the
+    CPU, where the arrays are final). `result()` waits for each event
+    before the bytes are read, gathers the shards in order and trims the
+    mesh padding."""
+
+    def __init__(self, parts, valid: int):
+        self.parts = parts
+        self.valid = valid
+
+    def result(self) -> Tuple[np.ndarray, ...]:
+        arrays = []
+        for outs, event in self.parts:
+            if event is not None:
+                # a non-blocking copy read before its event completes
+                # yields stale bytes, and nothing reports it
+                event.synchronize()
+            arrays.append([o.numpy() for o in outs])
+        if len(arrays) == 1:
+            return tuple(a[: self.valid] for a in arrays[0])
+        return tuple(np.concatenate(col, axis=0)[: self.valid] for col in zip(*arrays))
+
+
 class InferenceEngine:
     """A detxy-image -> prediction pipeline with the weights resident on
-    `device`.
+    `device`, or on each device of `mesh`.
 
     `params` is a state_dict for the configured model (`params_from_flax`
     converts the JAX package's Flax tree). `dtype=torch.bfloat16` runs the
@@ -59,7 +105,21 @@ class InferenceEngine:
     or taken from `int8_scales` (a `calibrate_int8_scales` dict, the same
     JSON the JAX package writes); after first use they are in
     `self.int8_scales`. Only the RRDB generators quantise.
+
+    `mesh`, a sequence of devices, replaces `device`: one replica of the
+    model per entry, built from the same state_dict. A batch of B > 1 is
+    padded to a multiple of the mesh size by repeating its last tile, split
+    into equal shards, shard i run on replica i, and the outputs gathered
+    in order and trimmed; a batch of 1 runs on `mesh[0]`. Every shard is
+    launched before any is read back. Repeated devices are allowed (two
+    replicas on one card, or on the CPU). int8 scales are calibrated once,
+    on `mesh[0]` over the whole first batch, and every replica's forward is
+    built from them.
     """
+
+    # chunks whose device work stays queued ahead of the host readback of
+    # the oldest; the pinned host buffers then hold _INFLIGHT + 1 chunks
+    _INFLIGHT = 2
 
     def __init__(
         self,
@@ -71,22 +131,22 @@ class InferenceEngine:
         crop_p: float = 1.0,
         quantize: bool = False,
         int8_scales: Optional[dict] = None,
-        mesh=None,
+        mesh: Optional[Sequence[Union[str, torch.device]]] = None,
         device: Union[str, torch.device] = "cuda:0",
     ):
         if int8_scales is not None and not quantize:
             raise ValueError("int8_scales is for quantize=True")
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP.md Queue 1 "
-                "item 8, multi-device serving)"
-            )
+            if isinstance(mesh, (str, torch.device)) or not isinstance(mesh, Sequence):
+                raise TypeError(f"mesh must be a sequence of devices, got {type(mesh).__name__}")
+            if not mesh:
+                raise ValueError("mesh must hold at least one device")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         if not 0.0 < crop_p <= 1.0:
             raise ValueError(f"crop_p must be in (0, 1], got {crop_p}")
         cfg = dataset_config
-        self.device = torch.device(device)
+        devices = [torch.device(d) for d in (mesh if mesh is not None else [device])]
         self.dtype = dtype
         self.lr_res = cfg.lr.res
         self.hr_res = cfg.hr.res if cfg.hr else cfg.lr.res
@@ -95,50 +155,68 @@ class InferenceEngine:
             hr_max=cfg.hr.clamp_max if cfg.hr else cfg.lr.clamp_max,
             mode=cfg.scaling,
         )
-        model = build_model(
-            model_config, (self.lr_res, self.lr_res), (self.hr_res, self.hr_res)
-        )
-        model.load_state_dict(params)
         self.quantize = bool(quantize)
         self.int8_scales = dict(int8_scales) if int8_scales is not None else None
-        self._forward_i8 = None
-        if self.quantize:
-            from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
-            from ..ops.int8_forward import check_scales
-
-            if not isinstance(model, (GeneratorRRDB_SR, GeneratorRRDB_DN)):
-                raise ValueError(
-                    "quantize=True is supported for the RRDB models only "
-                    f"(got {type(model).__name__})"
-                )
-            if self.int8_scales is not None:
-                check_scales(model, self.int8_scales)
-            self._f32_params = params
-        self.model = model.to(device=self.device, dtype=dtype).eval()
-        self.mask = None
-        if det_mask is not None:
-            self.mask = torch.as_tensor(
-                np.asarray(det_mask, np.float32), device=self.device
+        self._replicas: List[_Replica] = []
+        for dev in devices:
+            model = build_model(
+                model_config, (self.lr_res, self.lr_res), (self.hr_res, self.hr_res)
             )
+            model.load_state_dict(params)
+            if self.quantize and not self._replicas:
+                from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
+                from ..ops.int8_forward import check_scales
+
+                if not isinstance(model, (GeneratorRRDB_SR, GeneratorRRDB_DN)):
+                    raise ValueError(
+                        "quantize=True is supported for the RRDB models only "
+                        f"(got {type(model).__name__})"
+                    )
+                if self.int8_scales is not None:
+                    check_scales(model, self.int8_scales)
+            mask = None
+            if det_mask is not None:
+                mask = torch.as_tensor(np.asarray(det_mask, np.float32), device=dev)
+            self._replicas.append(_Replica(dev, model.to(device=dev, dtype=dtype).eval(), mask))
+        if self.quantize:
+            self._f32_params = params
         self._crop_args = None
         if crop_p < 1.0:
             self._crop_args = (crop_p, *crop_fractions(cfg.crop_mode, crop_p))
         self._serve_batch_cap: Optional[int] = None
+        self._cuda = any(d.type == "cuda" for d in devices)
 
-    def prepare(self, raw: torch.Tensor) -> torch.Tensor:
-        """(B, H, W) f32 rate images on `device` -> normalized NHWC input."""
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The data axis: one device per replica (one entry without a mesh)."""
+        return tuple(r.device for r in self._replicas)
+
+    @property
+    def device(self) -> torch.device:
+        return self._replicas[0].device
+
+    @property
+    def model(self) -> torch.nn.Module:
+        return self._replicas[0].model
+
+    def _prepare(self, rep: _Replica, raw: torch.Tensor) -> torch.Tensor:
         x = raw
-        if self.mask is not None:
-            x = x * self.mask
+        if rep.mask is not None:
+            x = x * rep.mask
         x = pad_to_res(x, self.lr_res)
         if self._crop_args is not None:
             x = crop(x, *self._crop_args)
         return self.normalizer.normalize_lr(x[..., None])
 
+    def prepare(self, raw: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) f32 rate images on `device` -> normalized NHWC input."""
+        return self._prepare(self._replicas[0], raw)
+
     def _ensure_int8(self, x: torch.Tensor) -> None:
-        """Quantized path: calibrate the scales from this prepared batch
-        (unless given) and build the int8 forward, once."""
-        if self._forward_i8 is not None:
+        """Quantized path: calibrate the scales from this prepared batch on
+        `mesh[0]` (unless given) and build every replica's int8 forward
+        from them, once."""
+        if self._replicas[0].forward_i8 is not None:
             return
         from ..ops.int8_forward import calibrate_int8_scales, make_int8_s2d_forward
 
@@ -146,45 +224,84 @@ class InferenceEngine:
             self.int8_scales = calibrate_int8_scales(
                 self.model, self._f32_params, x, device=self.device
             )
-        self._forward_i8 = make_int8_s2d_forward(
-            self.model, self._f32_params, dtype=self.dtype,
-            scales=self.int8_scales, device=self.device,
-        )
+        for rep in self._replicas:
+            rep.forward_i8 = make_int8_s2d_forward(
+                rep.model, self._f32_params, dtype=self.dtype,
+                scales=self.int8_scales, device=rep.device,
+            )
+
+    def _predict(self, rep: _Replica, x: torch.Tensor) -> torch.Tensor:
+        if self.quantize:
+            self._ensure_int8(x)
+            pred = rep.forward_i8(x).float()
+        elif self.dtype == torch.float32:
+            with true_f32():
+                pred = rep.model(x)
+        else:
+            pred = rep.model(x.to(self.dtype)).float()
+        return torch.clamp(pred, 0.0, 1.0)
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC input -> model output clipped to [0, 1], f32."""
-        if self.quantize:
-            self._ensure_int8(x)
-            pred = self._forward_i8(x).float()
-        elif self.dtype == torch.float32:
-            with true_f32():
-                pred = self.model(x)
-        else:
-            pred = self.model(x.to(self.dtype)).float()
-        return torch.clamp(pred, 0.0, 1.0)
+        return self._predict(self._replicas[0], x)
+
+    def _launch(self, rep: _Replica, host: torch.Tensor, with_input: bool):
+        """One shard's device work, queued: the upload, the pipeline and the
+        copies of its outputs into pinned buffers, then an event. Returns
+        (host outputs, event); on the CPU the outputs are final and the
+        event is None."""
+        on_card = rep.device.type == "cuda"
+        t = host.to(rep.device, non_blocking=True) if on_card else host
+        x = self._prepare(rep, t)
+        outs = [self.normalizer.denormalize_hr(self._predict(rep, x))[..., 0]]
+        if with_input:
+            outs.append(self.normalizer.denormalize_lr(x)[..., 0])
+        if not on_card:
+            return outs, None
+        pinned = []
+        for o in outs:
+            buf = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+            buf.copy_(o, non_blocking=True)
+            pinned.append(buf)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(rep.device))
+        return pinned, event
 
     @torch.inference_mode()
-    def _run(self, raw: np.ndarray, with_input: bool):
-        """One batch: (B, H, W) host rates -> host (pred[, denormalized input])."""
-        t = torch.from_numpy(np.ascontiguousarray(raw, np.float32)).to(self.device)
-        x = self.prepare(t)
-        pred = self.normalizer.denormalize_hr(self.predict(x))[..., 0]
-        if not with_input:
-            return (pred.cpu().numpy(),)
-        inp = self.normalizer.denormalize_lr(x)[..., 0]
-        return pred.cpu().numpy(), inp.cpu().numpy()
+    def _run(self, raw: np.ndarray, with_input: bool) -> _Readback:
+        """Launch one batch, (B, H, W) host rates, on the replicas; returns
+        its readback, whose `result()` is (pred[, denormalized input])."""
+        raw = np.ascontiguousarray(raw, np.float32)
+        b = raw.shape[0]
+        reps = self._replicas
+        if len(reps) == 1 or b == 1:
+            reps = reps[:1]
+        else:
+            if self.quantize and reps[0].forward_i8 is None:
+                # calibrate once, on the whole batch before it is sharded
+                self._ensure_int8(self._prepare(reps[0], torch.from_numpy(raw).to(reps[0].device)))
+            pad = (-b) % len(reps)
+            if pad:
+                raw = np.concatenate([raw, np.repeat(raw[-1:], pad, axis=0)], axis=0)
+        host = torch.from_numpy(raw)
+        if self._cuda:
+            host = host.pin_memory()
+        step = host.shape[0] // len(reps)
+        parts = [self._launch(rep, host[i * step : (i + 1) * step], with_input)
+                 for i, rep in enumerate(reps)]
+        return _Readback(parts, b)
 
     def __call__(self, raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """raw (H, W) or (B, H, W) -> (prediction, denormalized padded input)."""
         single = raw.ndim == 2
-        pred, inp = self._run(raw[None] if single else raw, with_input=True)
+        pred, inp = self._run(raw[None] if single else raw, with_input=True).result()
         return (pred[0], inp[0]) if single else (pred, inp)
 
     def _tiles_pipeline(self, raw, batch_size: int, with_input: bool):
         """Chunked serving with graceful OOM degradation: on a device
-        out-of-memory error the batch is halved and the whole request rerun
-        until a size fits (floor 1). The working cap is remembered so later
-        calls start there."""
+        out-of-memory error on any replica the batch is halved and the whole
+        request rerun until a size fits (floor 1). The working cap is
+        remembered so later calls start there."""
         bs = min(batch_size, self._serve_batch_cap or batch_size)
         while True:
             try:
@@ -195,22 +312,35 @@ class InferenceEngine:
             except torch.cuda.OutOfMemoryError as e:
                 if bs <= 1:
                     raise RuntimeError(
-                        "device out of memory serving even batch_size=1"
+                        "device out of memory serving even batch_size=1 with "
+                        f"{self._INFLIGHT + 1} chunks in flight"
                     ) from e
                 failed, bs = bs, max(1, bs // 2)
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
+                for dev in dict.fromkeys(self.devices):
+                    if dev.type == "cuda":
+                        with torch.cuda.device(dev):
+                            torch.cuda.empty_cache()
                 log.warning(
                     "serve: device out of memory at batch %d; retrying at %d",
                     failed, bs,
                 )
 
     def _tiles_pipeline_once(self, raw, batch_size: int, with_input: bool):
-        """Split (N, ...) into `batch_size` chunks, run each, concatenate."""
+        """Split (N, ...) into `batch_size` chunks and launch each; once
+        more than `_INFLIGHT` chunks are queued, read back the oldest.
+        Returns the concatenated host arrays."""
         outs: List[list] = [[], []] if with_input else [[]]
+        pending: deque = deque()
+
+        def drain(limit: int) -> None:
+            while len(pending) > limit:
+                for lst, arr in zip(outs, pending.popleft().result()):
+                    lst.append(arr)
+
         for i in range(0, raw.shape[0], batch_size):
-            for lst, arr in zip(outs, self._run(raw[i : i + batch_size], with_input)):
-                lst.append(arr)
+            pending.append(self._run(raw[i : i + batch_size], with_input))
+            drain(self._INFLIGHT)
+        drain(0)
         return tuple(np.concatenate(lst, axis=0) for lst in outs)
 
     def predict_tiles(self, raw: np.ndarray, batch_size: int = 32) -> np.ndarray:
@@ -253,8 +383,10 @@ def infer_file(
     out_path: Path,
     hr_exp_ks: float,
     model_name: str,
+    plot: bool = False,
 ) -> Tuple[Path, Path]:
-    """detxy FITS -> {input, prediction} WCS FITS products."""
+    """detxy FITS -> {input, prediction} WCS FITS products (+ `plot_in.png`
+    and `plot_out.png` with `plot`)."""
     fits_file = Path(fits_file)
     if not fits_file.exists():
         raise FileNotFoundError(f"File {fits_file} not found!")
@@ -263,7 +395,7 @@ def infer_file(
     rate, hdr, exposure = load_rate_image(fits_file)
     pred, inp = engine(rate)
     return write_products(
-        inp, pred, out_path, fits_file, exposure, hr_exp_ks, model_name, hdr
+        inp, pred, out_path, fits_file, exposure, hr_exp_ks, model_name, hdr, plot=plot
     )
 
 
@@ -274,6 +406,7 @@ def serve_files(
     hr_exp_ks: float,
     model_name: str,
     batch_size: int = 32,
+    plot: bool = False,
 ):
     """Batched serving: many detxy FITS -> product pairs.
 
@@ -281,7 +414,9 @@ def serve_files(
     `engine.run_tiles` a sub-batch at a time, and their products written by
     a small writer pool while the next sub-batch runs; the pool is closed by
     its `with` block before this returns. Colliding basenames get distinct
-    product stems. Returns [(input_product, prediction_product), ...]
+    product stems, and `plot` adds `<stem>_plot_in.png` and
+    `<stem>_plot_out.png`, drawn by one writer thread (matplotlib is not
+    thread-safe). Returns [(input_product, prediction_product), ...]
     aligned with `files`."""
     files = [Path(f) for f in files]
     out_path = Path(out_path)
@@ -303,7 +438,7 @@ def serve_files(
 
     results: list = [None] * len(files)
     sub_cap = batch_size * 4  # a few chunks per resident stack
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=1 if plot else 4) as pool:
         pending: list = []
         for idxs in groups.values():
             for s in range(0, len(idxs), sub_cap):
@@ -320,7 +455,7 @@ def serve_files(
                             write_products,
                             inps[j], preds[j], out_path, files[i],
                             metas[j][2], hr_exp_ks, model_name, metas[j][1],
-                            out_stem=stems[i],
+                            plot=plot, out_stem=stems[i],
                         ),
                     )
                     for j, i in enumerate(sub)
@@ -342,6 +477,7 @@ def watch_and_serve(
     state_path: Optional[Path] = None,
     stop: Optional[threading.Event] = None,
     max_polls: Optional[int] = None,
+    plot: bool = False,
 ) -> int:
     """Directory-watching serving daemon over one warm engine.
 
@@ -406,7 +542,7 @@ def watch_and_serve(
         if ready:
             try:
                 serve_files(ready, engine, out_path, hr_exp_ks, model_name,
-                            batch_size=batch_size)
+                            batch_size=batch_size, plot=plot)
                 for f in ready:
                     served[snapshot[f][2]] = "ok"
                 n_served += len(ready)
@@ -414,7 +550,8 @@ def watch_and_serve(
                 log.warning("watch: batch failed (%s); serving per-file", batch_err)
                 for f in ready:
                     try:
-                        serve_files([f], engine, out_path, hr_exp_ks, model_name, batch_size=1)
+                        serve_files([f], engine, out_path, hr_exp_ks, model_name,
+                                    batch_size=1, plot=plot)
                         served[snapshot[f][2]] = "ok"
                         n_served += 1
                     except Exception as e:
@@ -438,10 +575,13 @@ def write_products(
     hr_exp_ks: float,
     model_name: str,
     hdr: dict,
+    plot: bool = False,
     out_stem: Optional[str] = None,
 ) -> Tuple[Path, Path]:
     """Write the {input, prediction} WCS FITS product pair for one source
-    file. `out_stem` overrides the product stem."""
+    file, and with `plot` its PNGs: `plot_in.png` and `plot_out.png`, or
+    with `out_stem` (which overrides the product stem) `<out_stem>_plot_in.png`
+    and `<out_stem>_plot_out.png`."""
     stem = out_stem or fits_file.stem.replace(".fits", "")
     res_mult = pred.shape[0] // inp.shape[0]
     p_in = write_xmm_product_wcs(
@@ -458,4 +598,24 @@ def write_products(
         ),
         out_file_name=f"{stem}_predict_wcs", in_header=hdr,
     )
+    if plot:
+        _save_plots(p_in, p_pred, out_path, prefix=f"{out_stem}_" if out_stem else "")
     return p_in, p_pred
+
+
+def _save_plots(p_in: Path, p_pred: Path, out: Path, prefix: str = "") -> None:
+    """99.5-percentile plasma plots of the two products."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    for path, name in ((p_in, f"{prefix}plot_in.png"), (p_pred, f"{prefix}plot_out.png")):
+        img, _ = read_image(path)
+        finite = img[np.isfinite(img)]
+        lo, hi = np.percentile(finite, [0.25, 99.75])
+        plt.figure()
+        plt.imshow(np.clip(img, lo, hi), cmap="plasma", origin="lower",
+                   interpolation="nearest")
+        plt.savefig(out / name)
+        plt.close()

@@ -2,11 +2,13 @@
 
 Each kernel library is one source `csrc/<name>.cu` (which may include the
 `csrc/*.cuh` headers) with a plain C interface. `build(name)` compiles it
-with `nvcc` for `sm_90a` into `build/torch_kernels/` under the checkout,
-keyed by a hash of the sources and flags; `library(name, signatures)` loads
-it once with `ctypes`; `check` turns a nonzero cudaError_t returned by a
-launch into an exception. Nothing is built when a module is imported: the
-first launch on a card builds, and the CPU never does.
+with `nvcc` for `sm_90a` into `BUILD_DIR` (`build/torch_kernels/` under a
+writable checkout, the user's cache directory for an installed package:
+`utils/jitcache.py`), keyed by a hash of the sources and flags;
+`library(name, signatures)` loads it once with `ctypes`; `check` turns a
+nonzero cudaError_t returned by a launch into an exception. Nothing is
+built when a module is imported: the first launch on a card builds, and
+the CPU never does.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+from ..utils.jitcache import default_cache_dir
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+BUILD_DIR = default_cache_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -7,6 +7,8 @@
       val:   the eval step accumulating the loss and the collections on the
              device (all-reduced across processes), computed at epoch end;
              the input-baseline metrics on the first val pass only
+      images: every `log_images_every_n_epochs`, the display batch's panels
+             and FITS (`utils/imagelogger.py`; rank 0 writes)
       ckpt:  a torch checkpoint per epoch, best tracked on val/loss (min)
     test:  the same eval path with the extended and input-baseline
            collections, from the best (or given) state.
@@ -110,12 +112,6 @@ class Trainer:
         if datamodule.device != self.device:
             raise ValueError(f"the data module prepares batches on {datamodule.device}, the "
                              f"trainer runs on {self.device}")
-        if trainer_config.log_images_every_n_epochs > 0:
-            raise NotImplementedError(
-                "log_images_every_n_epochs > 0: the epoch image logger is not ported (ROADMAP.md "
-                "Queue 1 item 9, utilities: utils/imagelogger.py; it writes through io/wcs.py's "
-                "write_xmm_product, Queue 1 item 6); set it to 0")
-
         self.distributed = dist.is_initialized()
         self.world = dist.get_world_size() if self.distributed else 1
         self.rank = dist.get_rank() if self.distributed else 0
@@ -145,6 +141,24 @@ class Trainer:
         ]
         ckpt_root = trainer_config.checkpoint_root or Path("checkpoints")
         self.ckpt = CheckpointManager(Path(ckpt_root) / model_config.name.value)
+        # the epoch image logger (log_images_every_n_epochs > 0): the fixed
+        # display batch through the trainer's forward on its device
+        self.image_logger = None
+        self._display = None
+        if trainer_config.log_images_every_n_epochs > 0:
+            from ..data.display import XmmDisplayDataModule
+            from ..utils.imagelogger import ImageLogger
+
+            hr_exp = cfg.hr.exp if cfg.hr else cfg.lr.exps[0]
+            self.image_logger = ImageLogger(
+                out_dir=Path(ckpt_root) / model_config.name.value / "images",
+                normalizer=self.dm.normalizer,
+                log_every_n_epochs=trainer_config.log_images_every_n_epochs,
+                lr_exp_ks=float(cfg.lr.exps[0]),
+                hr_exp_ks=float(hr_exp),
+                device=self.device,
+            )
+            self._display = XmmDisplayDataModule(self.dm)
         self._eval_cache = {}
         self._tb = None  # the TensorBoard event writer, made at the first history entry
         self._live_state = None
@@ -176,6 +190,9 @@ class Trainer:
         # per-epoch diagnostics hook: callable(epoch, state) -> dict merged
         # into that epoch's history entry (None = off)
         self.epoch_callback = None
+        # called with no argument after each optimizer step (None = off);
+        # `cli fit --profile` closes its trace window with it
+        self.step_callback = None
 
     # ------------------------------------------------------------------ #
 
@@ -328,6 +345,8 @@ class Trainer:
                     else:
                         state, loss = self._train_step(state, batch)
                 train_losses.append(loss.detach())
+                if self.step_callback is not None:
+                    self.step_callback()
                 now = time.time()
                 if not self._fsdp and now - self._host_snapshot_t >= _SNAPSHOT_INTERVAL_S:
                     self._host_snapshot = snapshot(state)
@@ -338,12 +357,16 @@ class Trainer:
                 with self._step_precision():
                     state, loss = self._apply_step(state, *acc)
                 train_losses.append(loss.detach())
+                if self.step_callback is not None:
+                    self.step_callback()
             train_loss = (float(torch.stack(train_losses).mean()) if train_losses
                           else float("nan"))
 
             val_logs = self._run_eval(state, "val", "val",
                                       include_input_metrics=input_metrics_pending)
             input_metrics_pending = False  # one-shot (the reference's model.py:132-142)
+            if self.image_logger is not None and self.image_logger.should_log(epoch):
+                self._log_images(state, epoch)
             val_loss = val_logs["val/loss"]
             self.ckpt.save(epoch + 1, state, val_loss)
             if val_loss < result.best_val_loss:
@@ -378,6 +401,15 @@ class Trainer:
                                  es_best)
                         break
         return result
+
+    def _log_images(self, state: TrainState, epoch: int) -> None:
+        """The display batch through the forward on every rank (under FSDP
+        the forward is a collective), written by rank 0."""
+        db = self._display.prepared_batch()
+        with torch.no_grad(), true_f32():
+            preds = self._apply(state.module, torch.from_numpy(db["lr"]).to(self.device))
+        if is_primary():
+            self.image_logger.log_batch(epoch, db["lr"], preds.float().cpu().numpy(), db["hr"])
 
     def _append_history(self, entry) -> None:
         """One JSON line per epoch in `<run>/history.jsonl`, and each float

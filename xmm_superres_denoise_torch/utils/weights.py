@@ -37,6 +37,9 @@ layout in Flax (`layers_scan`, the groups stacked on axis 0,
   key layout (`params/...`), scanned when the model's `scan_layers` is set,
   which this module, the port's CLI and the JAX package's
   `load_params_npz` read.
+* `vgg_state_from_flax` converts the JAX package's Flax `VGGFeatures` tree
+  (`conv_i/kernel` HWIO) to the port's `metrics/vgg.py` state_dict
+  (torchvision's `features.N.weight` OIHW).
 """
 
 from __future__ import annotations
@@ -226,3 +229,26 @@ def flax_tree(src, scan_layers: bool = False) -> Dict:
         tree = _nest({k: np.array(v, np.float32) for k, v in flat.items()})
         return stack_layer_params(tree) if scan_layers else tree
     return _nest({k: np.array(v, np.float32) for k, v in _flat_params(src).items()})
+
+
+def vgg_state_from_flax(src, vgg_model: str = "vgg19", layers: int = 8) -> Dict[str, torch.Tensor]:
+    """The JAX package's Flax `VGGFeatures` params (any source
+    `params_from_flax` takes) -> the state_dict of the port's `VGGFeatures`:
+    the i-th conv's `conv_i/kernel` (HWIO) becomes `features.N.weight`
+    (OIHW) at its torchvision module index N."""
+    from ..metrics.vgg import VGG_CONFIGS, _torchvision_modules
+
+    flat = _flat_params(src)
+    state, conv_i = {}, 0
+    for seq_i, (kind, _) in enumerate(_torchvision_modules(VGG_CONFIGS[vgg_model])[: layers + 1]):
+        if kind != "conv":
+            continue
+        kernel = np.asarray(flat.pop(f"conv_{conv_i}/kernel"), np.float32)
+        state[f"features.{seq_i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        state[f"features.{seq_i}.bias"] = torch.from_numpy(
+            np.array(flat.pop(f"conv_{conv_i}/bias"), np.float32))
+        conv_i += 1
+    if flat:
+        raise KeyError(f"keys of no conv of {vgg_model}[:{layers + 1}]: {sorted(flat)}")
+    return state
