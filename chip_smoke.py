@@ -15,9 +15,12 @@ Phases, each printing its result and its seconds:
    bound: K2 at (2, 416, 416, 32) and K1 at (2, 208, 208, 128) in f32 (TF32
    off) and bf16, with K2 also held on K1's inputs (C = 128, the fast
    forward's shape; bf16 K2 runs K1's wgmma level there, and the bf16 line
-   adds that level's share of its bound and its ptxas report; the f32 lines
-   add the FFMA level's TFLOP/s, share of its bound, time at one full round
-   of tiles, ptxas report and shared memory); P at the
+   adds that level's share of its bound and its ptxas report; the bf16 line
+   at C = 32 adds the persistent wgmma level's share of the operation bound
+   and of the five-launch traffic floor, its time at one full wave of items,
+   ptxas report and shared memory; the f32 lines add the FFMA level's
+   TFLOP/s, share of its bound, time at one full round of tiles, ptxas
+   report and shared memory); P at the
    probe's (2048, 128) x (128, 128), exact, also timed on the device alone
    (torch.profiler) beside torch._int_mm, with the host time per call; K3
    raw (exact int32 sums) and fused (the int8 forward's epilogue inside,
@@ -189,6 +192,11 @@ S2D_SHAPE = (2, 208, 208, 128)  # the S2D trunk's dense-block input when serving
 # 11 x 12 tiles of 16 x 16 px = 132 blocks, one per SM: the bf16 level with no
 # partial last wave (S2D_SHAPE has 338 tiles, 2.56 waves)
 ONE_WAVE_SHAPE = (1, 176, 192, 128)
+# 12 x 22 tiles of 16 x 16 px = 264 items: one for each of the two consumer
+# warpgroups of the 132 persistent blocks of the bf16 level at C = 32
+# (conv3x3_wgmma32.cuh; KERNEL_SHAPE has 1,352 items, 5.1 per warpgroup)
+ONE_WAVE_C32_SHAPE = (1, 192, 352, 32)
+BF16_C32_SOURCE = "xmm_superres_denoise_torch/csrc/conv3x3_wgmma32.cuh"  # K2's bf16 level at C = 32
 # the f32 level's tiles (conv3x3_f32.cuh: 10 x 16 px at C = 32, four blocks
 # per SM; 14 x 16 px at C = 128, one block per SM) in exactly one round on
 # 132 SMs: 24 x 22 = 528 and 12 x 11 = 132 tiles
@@ -376,6 +384,58 @@ def _f32_level(build_logs: dict, c: int, ms: float, flops: float, bound_ms: floa
     )
 
 
+def _bf16_level(build_logs: dict, ms: float, flops: float, bound_ms: float) -> str:
+    """What the bf16 `[kernel]` line adds about the level at C = 32
+    (conv3x3_wgmma32.cuh), timed at `ms` for `flops` against the operation
+    bound `bound_ms`: its share of that bound and of the five-launch traffic
+    floor, each level's time alone beside the bytes it moves, the time of
+    one full wave of items (one per consumer warpgroup), ptxas's report of
+    its resident-weight form and its shared memory."""
+    from xmm_superres_denoise_torch.ops import cuda_build
+    from xmm_superres_denoise_torch.ops.dense_block import (
+        _SIGNATURES,
+        dense_block,
+        level_kernel,
+        pack_weights,
+    )
+
+    floor_ms = _five_launch_bytes(KERNEL_SHAPE, 2) / PEAK_BYTES_PER_S * 1e3
+    dev = torch.device("cuda:0")
+    x, ws = _block_inputs(ONE_WAVE_C32_SHAPE, torch.bfloat16, dev)
+    packed = pack_weights(ws[0::2], ws[1::2], torch.bfloat16)
+    with torch.inference_mode():
+        wave_ms = _time_ms(lambda: dense_block(x, packed), iters=20)
+    lib = cuda_build.library("dense_block", _SIGNATURES)
+    smem = lib.dense_block_bf16_smem_bytes(5 * 32, 32)
+    # each level alone at the serving shape, beside the bytes it must move
+    # (its k*C prefix read, C written, x read again at level 5)
+    b, h, w, c = KERNEL_SHAPE
+    x, ws = _block_inputs(KERNEL_SHAPE, torch.bfloat16, dev)
+    packed = pack_weights(ws[0::2], ws[1::2], torch.bfloat16)
+    buf = torch.zeros((b, h, w, 5 * c), dtype=torch.bfloat16, device=dev)
+    buf[..., :c] = x
+    out = torch.empty_like(x)
+    _, level = level_kernel(torch.bfloat16)
+    stream = cuda_build.stream_of(buf)
+    levels = []
+    for k in range(1, 6):
+        dst, dst_stride = (out.data_ptr(), c) if k == 5 else (buf[..., k * c:].data_ptr(), 5 * c)
+        args = (cuda_build.device_index(buf), buf.data_ptr(), b, h, w, 5 * c, k * c,
+                packed.kernel[k - 1].data_ptr(),
+                packed.biases[k - 1].data_ptr(), c, dst, dst_stride, int(k == 5), stream)
+        level_ms = _time_ms(lambda: cuda_build.check(lib, "dense_block", level(*args), "level"))
+        level_bytes = b * h * w * 2 * (k * c + c + (c if k == 5 else 0))
+        levels.append(f"{level_ms * 1e3:.1f} us ({level_bytes / PEAK_BYTES_PER_S * 1e6:.1f})")
+    return (
+        f"; the wgmma level (conv3x3_wgmma32_kernel, persistent, weights resident) reaches "
+        f"{bound_ms / ms:.1%} of the operation bound and {floor_ms / ms:.1%} of the five-launch "
+        f"traffic floor ({floor_ms:.4f} ms); levels 1-5 alone (byte floor): {', '.join(levels)}; "
+        f"one full wave {ONE_WAVE_C32_SHAPE} (264 items): {wave_ms:.4f} ms; ptxas: "
+        f"{_ptxas_report(build_logs['dense_block'], 'conv3x3_wgmma32_kernelILb0E')}; "
+        f"{smem} B of dynamic shared memory per block"
+    )
+
+
 def phase_kernel(dtype, build_logs: dict) -> dict:
     from xmm_superres_denoise_torch.ops.dense_block import (
         dense_block,
@@ -409,7 +469,8 @@ def phase_kernel(dtype, build_logs: dict) -> dict:
     nbytes = esize * (2 * x.numel() + sum(t.numel() for t in ws))
     bound_ms, bound_by = _bound(flops, nbytes, dtype)
     name = "f32" if dtype == torch.float32 else "bf16"
-    level = _f32_level(build_logs, c, ms, flops, bound_ms) if dtype == torch.float32 else ""
+    level = (_f32_level(build_logs, c, ms, flops, bound_ms) if dtype == torch.float32
+             else _bf16_level(build_logs, ms, flops, bound_ms))
     say(
         f"[kernel] dense_block {name} {KERNEL_SHAPE}: max|kernel-plain| {err:.3e} "
         f"(tol {tol:.3e}, max|plain| {scale:.3f}), max|cudnn-plain| {lib_err:.3e}; "
@@ -426,7 +487,7 @@ def phase_kernel(dtype, build_logs: dict) -> dict:
     return {
         "name": f"dense_block[{name}]",
         "route": "cuda",
-        "source": F32_SOURCE if dtype == torch.float32 else "xmm_superres_denoise_torch/csrc/dense_block.cu",
+        "source": F32_SOURCE if dtype == torch.float32 else BF16_C32_SOURCE,
         "replaces": "xmm_superres_denoise_tpu/ops/pallas_rrdb.py:141",
         "launches": None,  # filled from the serve run
         "max_abs_err": err,
@@ -2506,13 +2567,13 @@ def _profile_group(name: str) -> str:
         return "K2/K1 f32 FFMA level (CUDA cores)"
     if "int8_gemm_kernel" in name:
         return "P int8 GEMM"
+    if "conv3x3_wgmma32" in name:  # before the other wgmma levels' matches
+        return "K2 bf16 wgmma level, 16x16 px x 32 ch (conv3x3_wgmma32, persistent)"
     if "conv3x3_wgmma" in name and "S8" in name:  # before the bf16 level's match
         return K3_GROUPS[0]
     if "conv3x3_wgmma" in name:
         return "K1/K2 bf16 wgmma level, 16x16 px x 128 ch"
     if "conv3x3_kernel" in name:
-        if "Bf16" in name:
-            return "K2 bf16 mma.sync level, 16x16 px x 32 ch"
         return K3_GROUPS[1]
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass", "sm90")):

@@ -180,13 +180,19 @@ def test_packed_checks_refuse_misaligned_weights(dtype):
 
 
 def test_grid_limit_binds_bf16_only():
-    # bf16 levels launch B * C / 32 blocks along grid z (at most 65535); the
-    # f32 level's persistent grid has no such limit
-    ws = [torch.from_numpy(w) for w in _weights(32)]
-    x = torch.zeros(65600, 1, 1, 32)
-    check_packed(x, pack_weights(ws[0::2], ws[1::2], torch.float32))
-    with pytest.raises(ValueError, match="cannot take shape"):
-        check_packed(x.bfloat16(), pack_weights(ws[0::2], ws[1::2], torch.bfloat16))
+    # the bf16 level at C % 128 == 0 launches B * C / 128 blocks along grid
+    # z (at most 65535); the bf16 level at C = 32 and the f32 level launch a
+    # persistent one-dimensional grid and take any batch
+    for c in (32, 128):
+        ws = [torch.from_numpy(w) for w in _weights(c)]
+        x = torch.zeros(65600, 1, 1, c)
+        check_packed(x, pack_weights(ws[0::2], ws[1::2], torch.float32))
+        bf16 = pack_weights(ws[0::2], ws[1::2], torch.bfloat16)
+        if c == 32:
+            check_packed(x.bfloat16(), bf16)
+        else:
+            with pytest.raises(ValueError, match="cannot take shape"):
+                check_packed(x.bfloat16(), bf16)
 
 
 def test_other_devices_raise_instead_of_falling_back():

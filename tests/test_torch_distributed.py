@@ -17,6 +17,10 @@ padded row weighted 0).
   of the stepped model, and eval before it the eval of the initial one.
 * The eval step's `group` all-reduce with the core collections (psnr,
   ssim, l1, l2 and the mean-style poisson) gives the one-process states.
+* The emergency snapshot under FSDP: a `Trainer` fit on a 1 x 2 mesh,
+  its host mirror forced after every step, one rank raising in
+  `step_callback` mid-epoch; rank 0 writes the mirror as `emergency.pt`
+  without waiting on the failed rank, and it restores bitwise.
 
 The esr_gen generator at 4 filters, 1 RRDB, 16^2 -> 32^2, seeded (the
 DRCT at embed 12, one group of 5 blocks, window 4, seeded); the
@@ -27,6 +31,7 @@ and the eval states to 1e-6 relative.
 
 import os
 import socket
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,7 +40,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
-from _torch_train_common import batch, to_torch
+from _torch_train_common import LOSS_WEIGHTS, SQRT_TABLE, batch, configs, to_torch
 
 from xmm_superres_denoise_torch.config.schema import LossCfg
 from xmm_superres_denoise_torch.data.datamodule import pad_batch
@@ -87,15 +92,21 @@ def _eval(apply, batch_, group):
     return {"loss_sum": ls, "n": n, "states": states}
 
 
-MESHES = {"ddp": (2, 1), "fsdp": (1, 2), "hsdp": (2, 2), "fsdp-drct": (1, 2)}  # (data, fsdp)
+MESHES = {"ddp": (2, 1), "fsdp": (1, 2), "hsdp": (2, 2), "fsdp-drct": (1, 2),
+          "fsdp-emergency": (1, 2)}  # (data, fsdp)
+FAIL_RANK, FAIL_AT_STEP = 1, 2
+
+
+def _env(rank, port, world):
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.set_num_threads(1)
 
 
 def _worker(rank, port, mode, out):
     data, fsdp = MESHES[mode]
     world = data * fsdp
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
-    torch.set_num_threads(1)
+    _env(rank, port, world)
     from xmm_superres_denoise_torch.parallel import (
         initialize_distributed,
         make_mesh,
@@ -139,13 +150,55 @@ def _worker(rank, port, mode, out):
         dist.destroy_process_group()
 
 
-def _spawn(mode, tmp_path):
+def _emergency_worker(rank, port, mode, out):
+    """A 1 x 2 FSDP fit of the esr_gen generator (4 filters, 1 RRDB, boring
+    32^2 -> 64^2, batch 8: 4 steps an epoch), the mirror taken after every
+    step; rank FAIL_RANK raises after step FAIL_AT_STEP. Rank 0 saves what
+    it caught, its mirror and where the emergency snapshot lies."""
+    _env(rank, port, 2)
+    from xmm_superres_denoise_torch import config as tcfg
+    from xmm_superres_denoise_torch.data.datamodule import XmmDataModule
+    from xmm_superres_denoise_torch.parallel import initialize_distributed
+    from xmm_superres_denoise_torch.train import Trainer
+    from xmm_superres_denoise_torch.train import loop as tloop
+
+    initialize_distributed("cpu")
+    try:
+        tloop._SNAPSHOT_INTERVAL_S = 0.0  # force a mirror after every step
+        root = Path(out).parent
+        ds, mc, tc = configs(tcfg, root, mesh=tcfg.MeshCfg(data=1, fsdp=2), epochs=1)
+        dm = XmmDataModule(ds, splits_root=root / f"splits{rank}", boring_size=32,
+                           device="cpu")
+        tr = Trainer(mc, tc, dm, create_loss(SQRT_TABLE, LossCfg(**LOSS_WEIGHTS)),
+                     metric_names=["l1"], device="cpu")
+        steps = []
+
+        def fail_mid_epoch():
+            steps.append(len(steps) + 1)
+            if rank == FAIL_RANK and steps[-1] == FAIL_AT_STEP:
+                raise RuntimeError(f"injected failure on rank {rank} after step {steps[-1]}")
+
+        tr.step_callback = fail_mid_epoch
+        result = {"error": None}
+        try:
+            tr.fit(seed=1)
+        except RuntimeError as e:  # the injected failure, or gloo's on the other rank
+            result["error"] = f"{type(e).__name__}: {e}"
+        if rank == 0:
+            result.update(steps=len(steps), mirror=tr._host_snapshot,
+                          emergency=str(tr.ckpt.root / "emergency.pt"))
+            torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(mode, tmp_path, worker=_worker):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     out = tmp_path / f"{mode}.pt"
     world = MESHES[mode][0] * MESHES[mode][1]
-    ctx = mp.start_processes(_worker, args=(port, mode, str(out)), nprocs=world, join=False,
+    ctx = mp.start_processes(worker, args=(port, mode, str(out)), nprocs=world, join=False,
                              start_method="spawn")
     import time
 
@@ -223,3 +276,26 @@ def test_fsdp_step_and_eval_after_it(tmp_path, mode):
           f"before the step {before:.2e}, after it {after:.2e} (tol {RTOL:.0e})")
     assert abs(float(got["loss"]) - float(loss)) <= RTOL * abs(float(loss))
     assert p <= PARAM_ATOL and before <= RTOL and after <= RTOL
+
+
+def test_fsdp_emergency_snapshot_is_the_host_mirror(tmp_path):
+    got = _spawn("fsdp-emergency", tmp_path, _emergency_worker)
+    mirror = got["mirror"]
+    assert got["error"] is not None and mirror is not None
+    # rank 0 stepped on until the failed rank left the broadcast after step
+    # FAIL_AT_STEP, so its last mirror is of the step before
+    assert got["steps"] == FAIL_AT_STEP and mirror["step"] == FAIL_AT_STEP - 1
+    model = _model()
+    state = ts.TrainState.create(model, ts.Tx(LR))
+    from xmm_superres_denoise_torch.train.checkpoints import CheckpointManager
+
+    path = Path(got["emergency"])
+    restored = CheckpointManager(path.parent).restore_emergency(state)
+    params = restored.module.state_dict()
+    same = [torch.equal(v, params[k]) for k, v in mirror["model"].items()]
+    print(f"FSDP 1x2 (gloo): rank 0 caught {got['error'][:120]!r}; emergency.pt holds the "
+          f"mirror of step {mirror['step']}, {sum(same)}/{len(same)} tensors bitwise equal "
+          f"after restore_emergency")
+    assert path.exists() and restored.step == mirror["step"]
+    assert sorted(mirror["model"]) == sorted(params) and all(same)
+    assert mirror["optimizer"] is not None and restored.optimizer.state

@@ -13,10 +13,13 @@ Tolerances: f32 with TF32 off differs from cuDNN only in summation order
 versions, so they may differ by a few bf16 ulps (2^-8 relative). The int8
 kernels are exact: their int32 sums must equal the plain versions'.
 
-K2's bf16 levels run on the tensor cores in two kernels: C % 128 == 0
-takes K1's level (wgmma fed by TMA, 16 x 16 pixels x 128 channels), any
-other C % 32 == 0 an mma.sync 16 x 16 x 32 tile; the shapes below run both,
-with ragged edges. The f32 levels of both blocks run one CUDA-core kernel
+K2's bf16 levels run on the tensor cores in two wgmma kernels fed by TMA:
+C % 128 == 0 takes K1's level (16 x 16 pixels x 128 channels per block),
+any other C % 32 == 0 the persistent m64n32k16 level
+(`csrc/conv3x3_wgmma32.cuh`: weights resident in shared memory at C = 32,
+streamed with each chunk at C = 64, 96, ...); the shapes below run both,
+each level alone and the whole block, with ragged edges, and the SASS of
+K2's library holds HGMMA and no mma.sync (HMMA). The f32 levels of both blocks run one CUDA-core kernel
 (`csrc/conv3x3_f32.cuh`), 128 or 32 channels per block; its level tests
 cover both widths, ragged edges, and tile counts below and far above the
 resident blocks of its persistent grid.
@@ -282,6 +285,20 @@ def test_wgmma_level_matches_plain_version(cuda, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [
+    (2, 416, 416, 32),  # the model's block: 1352 items on 132 persistent blocks
+    (1, 13, 21, 32),    # 2 items, fewer than blocks; ragged
+    (3, 37, 45, 32),    # ragged in both directions
+    (3, 5, 70, 32),     # one tile row, ragged
+    (1, 16, 16, 64),    # weights streamed: two 32-channel groups
+    (2, 24, 40, 96),    # three groups, cin = 96 .. 480
+])
+def test_wgmma32_level_matches_plain_version(cuda, shape):
+    # the bf16 level at C % 128 != 0 (conv3x3_wgmma32.cuh)
+    _levels_match_plain_version(cuda, shape, torch.bfloat16, "dense_block")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
     (2, 416, 416, 32),   # the model's block: 1352 tiles, many more than resident blocks
     (1, 13, 21, 32),     # 2 tiles, fewer than resident blocks; ragged
     (3, 37, 45, 32),     # ragged in both directions
@@ -358,19 +375,39 @@ def test_f32_level_is_ffma_only(cuda):
 
 
 @pytest.mark.gpu
+def test_bf16_level_at_c32_is_warpgroup_mma(cuda):
+    # the bf16 level at C % 128 != 0 multiplies with wgmma (HGMMA), in both
+    # forms (resident and streamed weights), and K2's library holds no
+    # mma.sync (HMMA) at all
+    counts = _sass_counts("dense_block", ("HGMMA", "HMMA"))
+    lvl = {fn: c for fn, c in counts.items() if "conv3x3_wgmma32_kernel" in fn}
+    print(lvl)
+    assert len(lvl) == 2
+    assert all(c["HGMMA"] > 0 for c in lvl.values()), lvl
+    assert sum(c["HMMA"] for c in counts.values()) == 0, counts
+
+
+@pytest.mark.gpu
 def test_f32_kernel_takes_batches_past_the_bf16_grid_limit(cuda):
-    # the f32 level launches a one-dimensional persistent grid, so B * C / 32
-    # may pass 65535 (the bf16 levels' grid z); here 65,600 one-pixel images
+    # the f32 level and the bf16 level at C = 32 launch a one-dimensional
+    # persistent grid, so B * C / 32 may pass 65535; here 65,600 one-pixel
+    # images. The bf16 level at C % 128 == 0 keeps its grid z of B * C / 128
+    # (at most 65535) and is refused there.
     x, ws = _block_inputs((65600, 1, 1, 32), torch.float32, cuda)
-    before = dense_block.launches
-    with true_f32():
-        out = dense_block(x, *ws)
-        ref = dense_block_reference(x, *ws)
-    torch.cuda.synchronize()
-    assert dense_block.launches == before + 5
-    assert (out - ref).abs().max().item() <= 1e-4
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dtype), [w.to(dtype) for w in ws]
+        before = dense_block.launches
+        with true_f32():
+            out = dense_block(xd, *wd)
+            ref = dense_block_reference(xd, *wd)
+        torch.cuda.synchronize()
+        assert dense_block.launches == before + 5
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else 4 * 2.0**-8 * ref.float().abs().max().item()
+        assert err <= tol, (dtype, err, tol)
+    x, ws = _block_inputs((65600, 1, 1, 128), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="cannot take shape"):
-        dense_block(x.bfloat16(), *[w.bfloat16() for w in ws])
+        dense_block(x, *ws)
 
 
 @pytest.mark.gpu

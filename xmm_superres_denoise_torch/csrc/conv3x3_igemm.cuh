@@ -1,6 +1,6 @@
-// A SAME 3x3 convolution as an implicit GEMM on the tensor cores, NHWC,
-// shared by the s8 convolution (conv_i8.cu) and the bf16 dense-block level
-// (dense_level_bf16.cuh).
+// A SAME 3x3 convolution as an implicit GEMM on the tensor cores (mma.sync),
+// NHWC: the s8 convolution's route at cin % 128 != 0 (conv_i8.cu), i.e.
+// conv_first.
 //
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x input
 // channels. A block computes a TH x 16 pixel tile (M = 16 * TH) for BN
@@ -8,9 +8,8 @@
 // m16 tile per row) by BN / WARP_N along N, each a mma_tile warp tile of
 // 32 x WARP_N. The tile shape is a template parameter (`Tile` below):
 //   Tile128: TH = 8,  BN = 128, 8 warps of 32 x 64 (K3 at cin % 128 != 0,
-//            i.e. conv_first; K3 and the bf16 level at 128-channel
-//            multiples run conv3x3_wgmma.cuh instead)
-//   Tile32:  TH = 16, BN = 32,  8 warps of 32 x 32 (K2 bf16 at C % 128 != 0)
+//            i.e. conv_first; K3 at 128-channel multiples runs
+//            conv3x3_wgmma.cuh instead)
 // K is walked in chunks of CHUNK bytes of input channels: for each chunk the
 // block stages
 //   the (TH+2) x (16+2) input halo tile, CHUNK bytes per pixel, with zeros
@@ -27,8 +26,7 @@
 //
 // Shared memory per block (dynamic):
 //   Tile128, CHUNK = 32 (s8):   180 px * 48 B + 9 * 128 * 48 B =  8,640 + 55,296 =  63,936 B
-//   Tile32,  CHUNK = 64 (bf16): 324 px * 80 B + 9 *  32 * 80 B = 25,920 + 23,040 =  48,960 B
-// so two Tile128 blocks fit in an SM's shared memory, and four Tile32 blocks.
+// so two Tile128 blocks fit in an SM's shared memory.
 #pragma once
 
 #include "mma_tile.cuh"
@@ -55,11 +53,9 @@ struct Tile {
 };
 
 using Tile128 = Tile<8, 128, 8>;
-using Tile32 = Tile<16, 32, 4>;
 
 // __launch_bounds__ asks for two blocks per SM, which lets ptxas use up to
-// 128 registers. Tile32 would fit four blocks by shared memory, but asking
-// for three caps it at 80 registers, where it spills.
+// 128 registers.
 constexpr int MIN_BLOCKS = 2;
 
 template <class T, int CHUNK>

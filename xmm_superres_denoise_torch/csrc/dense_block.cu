@@ -19,22 +19,24 @@
 // 9 * 32^2 * (1+2+3+4+5) * 2 = 276,480 FLOP per pixel, 47.8 GFLOP per
 // image. Its five launches move 23 * C values per pixel through device
 // memory (x copied in, level k reading its k*C prefix and writing C, level
-// 5 reading x again), 1,472 B in bf16 at C = 32, 0.51 GB at
-// (2, 416, 416, 32): about 190 FLOP per byte, under the bf16 tensor-core
-// ridge (~295) but far above the f32 CUDA-core ridge (~20). It is bound by
-// operations: 0.097 ms at 989 TFLOP/s in bf16 (the five-launch traffic
-// alone takes 0.152 ms at 3.35 TB/s), 1.43 ms at 67 TFLOP/s in f32.
+// 5 reading x again), 1,472 B in bf16 at C = 32, 0.509 GB at
+// (2, 416, 416, 32): about 190 FLOP per byte. In bf16 that is under the
+// tensor cores' ridge (~295 FLOP per byte), so the five launches are bound
+// by their bytes: 0.152 ms at 3.35 TB/s, against 0.097 ms of operations
+// at 989 TFLOP/s. In f32 it is far above the CUDA cores' ridge (~20) and
+// bound by operations: 1.43 ms at 67 TFLOP/s.
 //
 // What the design does about it. Two level kernels, chosen by dtype:
 // * bf16 runs on the tensor cores through the level entry and epilogue of
 //   dense_level_bf16.cuh, which K1 shares. At C % 128 == 0 (the fast
 //   forward's C = 128) that is K1's level, wgmma fed by TMA on 16 x 16
 //   pixels x 128 channels (conv3x3_wgmma.cuh); at any other C % 32 == 0
-//   (the model's C = 32) the implicit GEMM of conv3x3_igemm.cuh (mma.sync
-//   m16n8k16 bf16 -> f32) on 16 x 16 pixels x 32 channels, 8 warps of
-//   32 x 32, 48,960 B of shared memory (ptxas, nvcc 12.9: 122 registers,
-//   no spills). Weights come packed once as (9, C, k*C) bf16
-//   (ops/dense_block.py: pack_weights).
+//   (the model's C = 32) conv3x3_wgmma32.cuh: a persistent wgmma m64n32k16
+//   kernel fed by TMA, two consumer warpgroups taking 16 x 16 pixel tiles
+//   in turn from rings of halo boxes while the level's weights stay
+//   resident in shared memory, so the level streams the concat buffer
+//   instead of waiting on each chunk. Weights come packed once as
+//   (9, C, k*C) bf16 (ops/dense_block.py: pack_weights).
 // * f32 stays on the CUDA cores (the parity class forbids TF32), in
 //   conv3x3_f32.cuh, which K1's f32 levels run too: FFMA only, a
 //   persistent grid over 16 x 16 pixel tiles with all 128 output channels
@@ -42,9 +44,11 @@
 //   cp.async ring of halo and weight chunks, and 8 pixels x 8 channels of
 //   accumulators per thread; its note says what bounds it. Weights are
 //   read as HWIO, as the caller gives them.
-// Neither form fuses the five levels into one launch: at C = 32 a 16x16
-// output tile with the 5-deep halo of the fused form needs 26*26*160 f32 =
-// 432 KB of concat, above the 227 KB a block may use.
+// Neither form fuses the five levels into one launch, which would cut the
+// bytes: at C = 32 a 16 x 16 output tile with the 5-deep halo of the fused
+// form needs 26*26*160 values of concat, 216 KB in bf16 (432 KB in f32),
+// and the block's 276 KB of bf16 weights come on top of the 227 KB a block
+// may use.
 
 #include <cuda_runtime.h>
 
@@ -54,11 +58,10 @@
 
 extern "C" {
 
-// dtype: 0 = float32 on the CUDA cores, w HWIO (3, 3, cin, C), buffer,
-// weights and dst 16-byte aligned; 1 = bfloat16 on the tensor cores, w
-// packed (9, C, cin). Shapes are checked by the Python wrapper: C % 32 == 0,
-// cin % 32 == 0, and in bf16 B * C / 32 < 65536 (f32 launches a
-// one-dimensional persistent grid).
+// dtype: 0 = float32 on the CUDA cores, w HWIO (3, 3, cin, C); 1 =
+// bfloat16 on the tensor cores, w packed (9, C, cin); buffer and weights
+// 16-byte aligned. Shapes are checked by the Python wrapper: C % 32 == 0,
+// cin % 32 == 0 (both dtypes launch a one-dimensional persistent grid).
 // Returns the cudaError_t of the launch (0 = cudaSuccess).
 int dense_block_level(int device, int dtype, const void* src, int B, int H,
                       int W, int src_stride, int cin, const void* w,
@@ -80,6 +83,10 @@ int dense_block_level(int device, int dtype, const void* src, int B, int H,
 int dense_block_f32_smem_bytes(int C) {
   return C % 128 == 0 ? conv3x3_f32::Cfg<128>::SMEM : conv3x3_f32::Cfg<32>::SMEM;
 }
+
+// Dynamic shared memory that one bf16 level block asks for at C % 128 != 0,
+// reading cin channels (conv3x3_wgmma32.cuh: resident weights at C = 32).
+int dense_block_bf16_smem_bytes(int cin, int C) { return conv3x3_wgmma32::smem_bytes(cin, C); }
 
 // cudaGetErrorString for the wrapper's messages.
 const char* dense_block_error_string(int err) {

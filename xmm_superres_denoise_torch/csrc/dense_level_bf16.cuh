@@ -11,21 +11,24 @@
 //
 // Kernel: C % 128 == 0 takes conv3x3_wgmma.cuh (wgmma fed by TMA, 16 x 16
 // pixels x 128 channels per block: K1's level and the fast forward's K2);
-// any other C % 32 == 0 takes the mma.sync implicit GEMM of
-// conv3x3_igemm.cuh on its Tile32 (16 x 16 pixels x 32 channels, grid z =
-// B * C / 32): at C = 32 the weight slice of a block is small, so the block
-// covers more pixels instead.
+// any other C % 32 == 0 takes conv3x3_wgmma32.cuh (a persistent wgmma
+// m64n32k16 kernel fed by TMA over 16 x 16 pixel x 32 channel items, the
+// level's weights resident in shared memory at the model's C = 32).
 #pragma once
 
 #include <cuda_bf16.h>
 
-#include "conv3x3_igemm.cuh"
 #include "conv3x3_wgmma.cuh"
+#include "conv3x3_wgmma32.cuh"
 
 namespace dense_level_bf16 {
 
 // bias, then LeakyReLU(0.2) into the concat buffer, or 0.2 * v + x into
-// the output; f32 arithmetic, one rounding to bf16 at the store.
+// the output; f32 arithmetic, one rounding to bf16 at the store. The bias
+// and the residual are read through the read-only path (__ldg): the level
+// never writes them, and it tells the compiler that the stores of one call
+// cannot alias the loads of the next, so an unrolled caller loads them up
+// front instead of one store's round trip at a time.
 struct Epilogue {
   const __nv_bfloat16* bias;
   const __nv_bfloat16* res;  // the block input x: buffer channels [0, C)
@@ -34,11 +37,11 @@ struct Epilogue {
   int dst_stride;
   int residual;
   __device__ __forceinline__ void operator()(size_t pix, int n, float v0, float v1) const {
-    v0 += __bfloat162float(bias[n]);
-    v1 += __bfloat162float(bias[n + 1]);
+    v0 += __bfloat162float(__ldg(bias + n));
+    v1 += __bfloat162float(__ldg(bias + n + 1));
     if (residual) {
       const __nv_bfloat162 r =
-          *reinterpret_cast<const __nv_bfloat162*>(res + pix * res_stride + n);
+          __ldg(reinterpret_cast<const __nv_bfloat162*>(res + pix * res_stride + n));
       v0 = v0 * 0.2f + __low2float(r);
       v1 = v1 * 0.2f + __high2float(r);
     } else {
@@ -53,9 +56,8 @@ struct Epilogue {
 // w is packed (9, C, cin) bf16. buf: the concat buffer, buf_stride elements
 // between pixels, read over channels [0, cin); dst: the level's first output
 // channel, dst_stride elements between pixels; residual != 0 for level 5.
-// C % 32 == 0 and cin % 32 == 0 (checked by the Python wrappers; at
-// C % 128 == 0 also the 16-byte alignment TMA needs). Returns the
-// cudaError_t of the launch.
+// C % 32 == 0, cin % 32 == 0 and the 16-byte alignment TMA needs (checked
+// by the Python wrappers). Returns the cudaError_t of the launch.
 inline int launch(const void* buf, int B, int H, int W, int buf_stride, int cin,
                   const void* w, const void* bias, int C, void* dst, int dst_stride,
                   int residual, cudaStream_t stream) {
@@ -65,8 +67,7 @@ inline int launch(const void* buf, int B, int H, int W, int buf_stride, int cin,
   if (C % 128 == 0)
     return conv3x3_wgmma::launch<conv3x3_wgmma::Bf16>(buf, B, H, W, buf_stride, cin, w, C, epi,
                                                       stream);
-  return igemm::launch<mma_tile::Bf16, 64, igemm::Tile32>(buf, B, H, W, buf_stride * 2,
-                                                          cin * 2, w, C, epi, stream);
+  return conv3x3_wgmma32::launch(buf, B, H, W, buf_stride, cin, w, C, epi, stream);
 }
 
 }  // namespace dense_level_bf16

@@ -1,15 +1,13 @@
-// The tensor-core warp tile shared by the int8 GEMM probe (int8_gemm.cu),
-// the s8 implicit-GEMM convolution (conv_i8.cu) and the bf16 dense-block
-// level (dense_level_bf16.cuh, behind dense_block.cu and
-// dense_block_s2d.cu).
+// The s8 tensor-core warp tile shared by the int8 GEMM probe (int8_gemm.cu)
+// and the s8 implicit-GEMM convolution's mma.sync route (conv_i8.cu,
+// through conv3x3_igemm.cuh).
 //
 // One warp owns a 32 x (8 * N_TILES) tile of the output (two m16 tiles by
 // N_TILES n8 tiles; N_TILES is a template parameter: 8 for a 32 x 64 tile,
 // 4 for 32 x 32) and advances it by one k-step of 32 bytes of K:
-//   bf16: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (16 values)
-//   s8:   mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32     (32 values)
-// In bytes the two instructions take their fragments from the same places,
-// so one loader serves both. With g = lane / 4 and t = lane % 4:
+//   s8: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 (32 values)
+// The instruction is a template parameter (`S8`). With g = lane / 4 and
+// t = lane % 4:
 //   A (16 rows x 32 bytes, row-major): a0 = row g, bytes 4t..4t+3;
 //     a1 = row g+8, same bytes; a2 = row g, bytes 16+4t..; a3 = row g+8,
 //     bytes 16+4t..
@@ -31,18 +29,6 @@ namespace mma_tile {
 constexpr int WARP_M = 32;   // output rows of a warp (two m16 tiles)
 constexpr int M_TILES = 2;
 constexpr int K_BYTES = 32;  // bytes of K per k-step
-
-struct Bf16 {
-  using Acc = float;
-  static __device__ __forceinline__ void mma(Acc (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
 
 struct S8 {
   using Acc = int;

@@ -58,7 +58,8 @@ from .precision import true_f32
 Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_OUT_CHANNELS_PER_BLOCK = 32  # channels of the narrowest bf16 block (its grid z is B * C / 32)
+_OUT_CHANNELS_PER_BLOCK = 32  # output channels of the narrowest level item
+_WGMMA_CHANNELS = 128  # the bf16 level at C % 128 == 0: its grid z is B * C / 128
 _MAX_GRID_Z = 65535
 _SIGNATURES = {
     "dense_block_level": [cuda_build.I, cuda_build.I, cuda_build.P, *[cuda_build.I] * 5,
@@ -94,9 +95,9 @@ def pack_weights(
 
 def _check_input(x: Tensor, name: str, multiple: int) -> None:
     """Raise on an input the level kernels do not take: not NHWC, not f32
-    or bf16, C not a multiple of `multiple`, a bf16 grid too large (the f32
-    level launches a one-dimensional persistent grid), or not
-    contiguous."""
+    or bf16, C not a multiple of `multiple`, empty, a grid too large for
+    the bf16 level at C % 128 == 0 (the other levels launch a
+    one-dimensional persistent grid), or not contiguous."""
     if x.dim() != 4:
         raise ValueError(f"{name} expects NHWC (B, H, W, C), got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -104,7 +105,8 @@ def _check_input(x: Tensor, name: str, multiple: int) -> None:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {x.dtype}")
     if c % multiple:
         raise ValueError(f"{name} kernel needs C % {multiple} == 0, got C={c}")
-    too_many = x.dtype == torch.bfloat16 and b * (c // _OUT_CHANNELS_PER_BLOCK) > _MAX_GRID_Z
+    too_many = (x.dtype == torch.bfloat16 and c % _WGMMA_CHANNELS == 0
+                and b * (c // _WGMMA_CHANNELS) > _MAX_GRID_Z)
     if too_many or b * h * w == 0:
         raise ValueError(f"{name} kernel cannot take shape {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -135,9 +137,8 @@ def check_packed(x: Tensor, packed: PackedBlock, name: str = "dense_block",
                 f"{tuple(wk.shape)} and {tuple(bk.shape)}"
             )
         _check_tensors(x, k, (wk, bk))
-        # the levels copy weights in 16-byte pieces (TMA boxes in f32 and in
-        # bf16 at C % 128 == 0, cp.async in bf16 at C = 32); TMA refuses an
-        # unaligned base
+        # the levels copy weights in 16-byte pieces (TMA boxes in both
+        # dtypes); TMA refuses an unaligned base
         if wk.data_ptr() % 16:
             raise ValueError(
                 f"level {k}: packed w must start on a 16-byte boundary for the kernel's "

@@ -297,31 +297,61 @@ class Trainer:
         the fit (crash, OOM, interrupt) also keep the mid-epoch state, so at
         most one batch of progress is lost: the live state first, else the
         host mirror (up to `_SNAPSHOT_INTERVAL_S` stale). Under FSDP reading
-        the state is a collective that the other ranks would not join, so
-        there the latest stepped checkpoint is what remains."""
-        epath = None
-        if self._fsdp:
-            log.warning("%s at epoch %d under FSDP: no emergency snapshot; resume from the "
-                        "latest stepped save: %s", type(e).__name__, done, self.ckpt.latest_step())
+        the live state is a collective that the other ranks may never join,
+        so there rank 0 writes the mirror and no rank waits on another."""
+        if not is_primary():
             return
-        try:
-            if self._live_state is not None and is_primary():
+        if self._fsdp:
+            epath = self._save_mirror("sharded under FSDP")
+        else:
+            try:
                 self._live_state.optimizer.zero_grad(set_to_none=True)
                 epath = self.ckpt.save_emergency(snapshot(self._live_state))
-        except Exception:
-            if self._host_snapshot is not None:
-                try:
-                    epath = self.ckpt.save_emergency(self._host_snapshot)
-                    log.warning("live state unreadable: the emergency snapshot is the host "
-                                "mirror, up to %.0f s stale", _SNAPSHOT_INTERVAL_S)
-                except Exception:
+            except Exception:
+                epath = self._save_mirror("unreadable")
+                if self._host_snapshot is None:
                     log.exception("emergency checkpoint failed")
-            else:
-                log.exception("emergency checkpoint failed")
         if epath is not None:
             log.warning("%s at epoch %d: emergency state saved to %s; resume with "
                         "checkpoint_path set (latest stepped save: %s)",
                         type(e).__name__, done, epath, self.ckpt.latest_step())
+        else:
+            log.warning("%s at epoch %d: no emergency snapshot possible; resume from the "
+                        "latest stepped save: %s", type(e).__name__, done,
+                        self.ckpt.latest_step())
+
+    def _save_mirror(self, why: str):
+        """Write the host mirror as the emergency snapshot; its path, or None
+        when there is no mirror or the write failed."""
+        if self._host_snapshot is None:
+            return None
+        try:
+            path = self.ckpt.save_emergency(self._host_snapshot)
+        except Exception:
+            log.exception("emergency checkpoint failed")
+            return None
+        log.warning("the live state was unavailable (%s): the emergency snapshot is the host "
+                    "mirror of step %d, %.1f s stale (at most %.0f s)", why,
+                    self._host_snapshot["step"], time.time() - self._host_snapshot_t,
+                    _SNAPSHOT_INTERVAL_S)
+        return path
+
+    def _refresh_mirror(self, state) -> None:
+        """Take the host mirror when `_SNAPSHOT_INTERVAL_S` has passed since
+        the last one. Under FSDP taking it is a collective, so rank 0's clock
+        decides for every rank, broadcast as one small tensor per step, and
+        rank 0 keeps the gathered copy."""
+        now = time.time()
+        due = now - self._host_snapshot_t >= _SNAPSHOT_INTERVAL_S
+        if self._fsdp:
+            flag = torch.tensor([int(due)], device=self.device)
+            dist.broadcast(flag, src=0, group=self.group)
+            due = bool(flag.item())
+        if due:
+            mirror = snapshot(state)
+            if is_primary() or not self._fsdp:
+                self._host_snapshot = mirror
+            self._host_snapshot_t = now
 
     def _fit_epochs(self, state, start_epoch, epochs, result) -> FitResult:
         # early-stopping state (restarts on resume: the best checkpoint on
@@ -347,10 +377,7 @@ class Trainer:
                 train_losses.append(loss.detach())
                 if self.step_callback is not None:
                     self.step_callback()
-                now = time.time()
-                if not self._fsdp and now - self._host_snapshot_t >= _SNAPSHOT_INTERVAL_S:
-                    self._host_snapshot = snapshot(state)
-                    self._host_snapshot_t = now
+                self._refresh_mirror(state)
             if acc is not None:
                 # a tail shorter than accumulate_grad_batches still steps
                 # (Lightning's semantics: no gradient is dropped)
