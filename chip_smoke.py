@@ -20,16 +20,19 @@ Phases, each printing its result and its seconds:
    and of the five-launch traffic floor, its time at one full wave of items,
    ptxas report and shared memory; the f32 lines add the FFMA level's
    TFLOP/s, share of its bound, time at one full round of tiles, ptxas
-   report and shared memory); P at the
-   probe's (2048, 128) x (128, 128), exact, also timed on the device alone
-   (torch.profiler) beside torch._int_mm, with the host time per call; K3
+   report and shared memory); P (the s8 wgmma m64n128k32 that K3 serves
+   on) at the probe's (2048, 128) x (128, 128), exact, also timed on the
+   device alone (torch.profiler) beside torch._int_mm and its bound, with
+   the host time per call; K3
    raw (exact int32 sums) and fused (the int8 forward's epilogue inside,
    bf16, bitwise equal to its plain composition in bf16 and f32) at the int8
    forward's shapes: dense level 1 (codes into the concat), level 5
    (residual; alone, and with the codes of the next block's input beside
    it), conv_first and trunk_conv (with codes beside), upconv and HRconv, with
-   the route each took (s8 wgmma or mma.sync), TOP/s, share of the bound
-   and the route's ptxas report and shared memory;
+   the route each took (the 128-channel s8 wgmma level, or the (tap,
+   channel) wgmma route at conv_first's Cin 4), TOP/s, share of the bound
+   (conv_first: of its byte floor, raw and fused) and the route's ptxas
+   report and shared memory;
 4. serve: 4 synthetic Poisson detxy FITS (403x411, so padding is exercised)
    served by `serve_files` through `InferenceEngine` at full esr_gen width and
    depth (416^2 -> 832^2) with the trained weights, in f32 and in bf16. The
@@ -784,22 +787,30 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
 
 
 def _device_ms(fn, iters: int = 20) -> float:
-    """Mean device time of the kernels one call launches: torch.profiler
-    over `iters` warm calls, the kernels' own durations summed (no launch
-    gaps, no host time)."""
+    """Device time of the kernels one call launches: torch.profiler over
+    `iters` warm calls, each kernel's mean duration times its launches per
+    call, summed (no launch gaps, no host time). The profiler loses events
+    now and then: a kernel it saw fewer than `iters` times still counts
+    once a call at its mean, and a trace with no kernel at all is taken
+    again, up to TRACE_TRIES times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("the profiler saw no CUDA kernel")
-    return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_name:
+            return sum(sum(d) / len(d) * max(1, round(len(d) / iters))
+                       for d in by_name.values()) / 1e3
+    raise AssertionError("the profiler saw no CUDA kernel")
 
 
 def _host_us(fn, iters: int = 200) -> float:
@@ -814,7 +825,7 @@ def _host_us(fn, iters: int = 200) -> float:
     return (t1 - t0) / iters * 1e6
 
 
-def phase_kernel_p() -> dict:
+def phase_kernel_p(build_logs: dict) -> dict:
     from xmm_superres_denoise_torch.ops.int8_gemm import (
         PROBE_SHAPE,
         int8_gemm,
@@ -846,13 +857,16 @@ def phase_kernel_p() -> dict:
     nbytes = m * k + k * n + 4 * m * n
     bound_ms, bound_by = _bound(flops, nbytes, torch.int8)
     say(
-        f"[kernel] int8_gemm {tuple(a.shape)} x {tuple(b.shape)}: exact {exact} (max|diff| "
+        f"[kernel] int8_gemm {tuple(a.shape)} x {tuple(b.shape)} on the s8 wgmma "
+        f"(m64n128k32, A from registers; the instruction K3 serves on): exact {exact} (max|diff| "
         f"{err:.0f}), torch._int_mm exact {lib_exact}; CUDA events over 50 back-to-back calls: "
         f"kernel {ms:.4f} ms, plain (f64 matmul on the card) {plain_ms:.4f} ms, torch._int_mm "
         f"{library_ms:.4f} ms; device only (torch.profiler, 20 warm calls): kernel "
-        f"{dev_ms * 1e3:.2f} us, torch._int_mm {lib_dev_ms * 1e3:.2f} us; host per call while "
-        f"enqueueing: kernel {host_us:.2f} us, torch._int_mm {lib_host_us:.2f} us; bound "
-        f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G int8 ops) "
+        f"{dev_ms * 1e3:.2f} us ({bound_ms / dev_ms:.1%} of its bound), torch._int_mm "
+        f"{lib_dev_ms * 1e3:.2f} us; host per call while enqueueing: kernel {host_us:.2f} us, "
+        f"torch._int_mm {lib_host_us:.2f} us; bound {bound_ms:.5f} ms by {bound_by} "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G int8 ops); ptxas: "
+        f"{_ptxas_report(build_logs['int8_gemm'], 'int8_gemm_kernel')} "
         f"({time.perf_counter() - t0:.2f} s)"
     )
     if not exact:
@@ -904,8 +918,11 @@ def _k3_case(which: str, dev):
 
 
 def phase_kernel_k3(build_logs: dict) -> tuple:
-    """K3 raw and fused at each of K3_SHAPES; returns the raw and the fused
-    JSON entries of level 5."""
+    """K3 raw and fused at each of K3_SHAPES, timed with CUDA events over
+    back-to-back calls and on the device alone (torch.profiler: at
+    conv_first's tens of microseconds the events time the host's enqueue);
+    returns the raw and the fused JSON entries of level 5 and the fused
+    entry of conv_first + codes, the (tap, channel) route."""
     from xmm_superres_denoise_torch.ops import cuda_build
     from xmm_superres_denoise_torch.ops.conv_i8 import (
         _SIGNATURES,
@@ -921,9 +938,8 @@ def phase_kernel_k3(build_logs: dict) -> tuple:
         t0 = time.perf_counter()
         x8, w8, packed, epis, res, codes = _k3_case(which, dev)
         b, h, w, cin = shape
-        cin_k = packed.kernel.shape[2]
         path = route(cin)
-        if path != ("wgmma" if lib.conv_i8_wgmma_route(cin_k) else "mma.sync"):
+        if path != ("wgmma" if lib.conv_i8_wgmma_route(cin) else "wgmma_taps"):
             raise AssertionError(f"conv_i8 {which}: the wrapper's route {path} is not the kernel's")
         # raw: the exact int32 sums
         out = conv_i8(x8, packed)
@@ -945,6 +961,8 @@ def phase_kernel_k3(build_logs: dict) -> tuple:
         fused_ms = _time_ms(fused, iters=20)
         fused_plain_ms = _time_ms(lambda: epi.apply(conv_i8_reference(x8, w8), r),
                                   iters=3, warmup=1)
+        dev_ms = _device_ms(lambda: conv_i8(x8, packed))
+        fused_dev_ms = _device_ms(fused)
         flops = 2 * b * h * w * 9 * cin * cout
         nbytes = x8.numel() + w8.numel() + 4 * b * h * w * cout
         bound_ms, bound_by = _bound(flops, nbytes, torch.int8)
@@ -952,7 +970,7 @@ def phase_kernel_k3(build_logs: dict) -> tuple:
         fused_bytes = (x8.numel() + w8.numel() + 8 * cout + b * h * w * cout * out_esize
                        + (2 * b * h * w * cout if res_scale is not None else 0))
         fused_bound_ms, fused_by = _bound(flops, fused_bytes, torch.int8)
-        kernel = "conv3x3_wgmma_kernel" if path == "wgmma" else "conv3x3_kernel"
+        kernel = "conv3x3_wgmma_kernel" if path == "wgmma" else "conv3x3_tapk_kernel"
         say(
             f"[kernel] conv_i8 {which} {shape} -> {cout} on the {path} route: raw exact {exact} "
             f"(max|diff| {err:.0f}, max|sum| {int(ref.abs().max())}), {ms:.4f} ms, "
@@ -966,8 +984,10 @@ def phase_kernel_k3(build_logs: dict) -> tuple:
             f"its plain composition: bf16 {same[torch.bfloat16]}, f32 {same[torch.float32]}; "
             f"{fused_ms:.4f} ms, {flops / (fused_ms * 1e-3) / 1e12:.1f} TOP/s, "
             f"{fused_bound_ms / fused_ms:.1%} of its bound {fused_bound_ms:.4f} ms by {fused_by} "
-            f"({fused_bytes / 1e6:.1f} MB), plain composition {fused_plain_ms:.4f} ms; ptxas: "
-            f"{_ptxas_report(build_logs['conv_i8'], kernel)}, {lib.conv_i8_smem_bytes(cin_k)} B of "
+            f"({fused_bytes / 1e6:.1f} MB), plain composition {fused_plain_ms:.4f} ms; device only "
+            f"(torch.profiler): raw {dev_ms:.4f} ms ({bound_ms / dev_ms:.1%} of its bound), fused "
+            f"{fused_dev_ms:.4f} ms ({fused_bound_ms / fused_dev_ms:.1%}); ptxas: "
+            f"{_ptxas_report(build_logs['conv_i8'], kernel)}, {lib.conv_i8_smem_bytes(cin)} B of "
             f"dynamic shared memory per block; no PyTorch call computes an s8 convolution "
             f"({time.perf_counter() - t0:.2f} s)"
         )
@@ -975,17 +995,21 @@ def phase_kernel_k3(build_logs: dict) -> tuple:
             raise AssertionError(f"conv_i8 {which} sums are not exact")
         if not all(same.values()):
             raise AssertionError(f"conv_i8 {which} fused epilogue differs from its plain version")
+        common = {"route": "cuda", "source": "xmm_superres_denoise_torch/csrc/conv_i8.cu",
+                  "replaces": "xmm_superres_denoise_tpu/ops/int8_forward.py:125",
+                  "launches": None, "library_ms": None}  # launches: from serve-int8
+        fused_entry = {**common, "max_abs_err": fused_err[torch.bfloat16], "ms": fused_ms,
+                       "device_ms": fused_dev_ms, "plain_ms": fused_plain_ms,
+                       "bound_ms": fused_bound_ms, "bound_by": fused_by}
         if which == "level5":
-            common = {"route": "cuda", "source": "xmm_superres_denoise_torch/csrc/conv_i8.cu",
-                      "replaces": "xmm_superres_denoise_tpu/ops/int8_forward.py:125",
-                      "launches": None, "library_ms": None}  # launches: from serve-int8
             entries["raw"] = {"name": "conv_i8", **common, "max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-            entries["fused"] = {"name": "conv_i8[fused]", **common,
-                                "max_abs_err": fused_err[torch.bfloat16],
-                                "ms": fused_ms, "plain_ms": fused_plain_ms,
-                                "bound_ms": fused_bound_ms, "bound_by": fused_by}
-    return entries["raw"], entries["fused"]
+                              "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by}
+            entries["fused"] = {"name": "conv_i8[fused]", **fused_entry}
+        elif which == "conv_first+codes":
+            entries["taps"] = {**fused_entry, "name": "conv_i8[conv_first, wgmma_taps]",
+                               "source": "xmm_superres_denoise_torch/csrc/conv3x3_tapk.cuh"}
+    return entries["raw"], entries["fused"], entries["taps"]
 
 
 def _k3_forward_ops(b: int, h: int, w: int, blocks: int, group: int) -> int:
@@ -1092,10 +1116,12 @@ def phase_serve_int8(ctx, tmp: Path) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     conv_i8.launches = int8_gemm.launches = 0
+    conv_i8.route_launches = dict.fromkeys(conv_i8.route_launches, 0)
     products = serve_files(ctx["files"], engine, tmp / "int8", hr_exp_ks=100.0,
                            model_name="esr_gen", batch_size=SERVE_BATCH)
     torch.cuda.synchronize()
-    launches = {"conv_i8": conv_i8.launches, "int8_gemm": int8_gemm.launches}
+    launches = {"conv_i8": conv_i8.launches, "int8_gemm": int8_gemm.launches,
+                **{f"conv_i8 {r}": n for r, n in conv_i8.route_launches.items()}}
     serve_s = time.perf_counter() - t1
     pred = np.stack([read_image(p)[0] for _, p in products])
     mse = float(np.mean(((pred - ref) / hr_max) ** 2))
@@ -1108,13 +1134,16 @@ def phase_serve_int8(ctx, tmp: Path) -> dict:
     say(
         f"[serve-int8] bf16 epilogues: {SERVE_FILES} files in {serve_s:.3f} s incl. calibration "
         f"on the first batch and FITS read+write; conv_i8 launches {launches['conv_i8']} "
-        f"(expected {expected}), int8_gemm launches {launches['int8_gemm']} (the exactness check "
-        f"at build); {len(engine.int8_scales)} scale keys; products vs the f32 plain forward "
+        f"(expected {expected}: the 128-channel wgmma route {launches['conv_i8 wgmma']}, the "
+        f"(tap, channel) route {launches['conv_i8 wgmma_taps']}, one conv_first a batch), "
+        f"int8_gemm launches {launches['int8_gemm']} (the exactness check at build); "
+        f"{len(engine.int8_scales)} scale keys; products vs the f32 plain forward "
         f"max|diff| {np.abs(pred - ref).max() / hr_max:.3e} x hr_max, PSNR {psnr:.2f} dB on the "
         f"hr_max scale (gate {INT8_PSNR_DB:.0f} dB); engine alone (run_tiles, warm, host clock "
         f"incl. transfers) {engine_ms:.3f} ms/image ({time.perf_counter() - t0:.2f} s)"
     )
-    if launches["conv_i8"] != expected or launches["int8_gemm"] < 1:
+    if launches["conv_i8"] != expected or launches["int8_gemm"] < 1 \
+            or launches["conv_i8 wgmma_taps"] != n_batches:
         raise AssertionError(f"int8 serve launches {launches}, expected {expected} conv_i8")
     if not (np.isfinite(pred).all() and pred.shape == ref.shape and psnr >= INT8_PSNR_DB):
         raise AssertionError(f"int8 serve below the gate: PSNR {psnr:.2f} dB")
@@ -2556,7 +2585,7 @@ def _ddp_world_one() -> None:
 
 
 LIBRARY_GROUPS = ("cuDNN/cuBLAS convolution or GEMM", "elementwise, copies and the rest")
-K3_GROUPS = ("K3 s8 wgmma level", "K3 s8 mma.sync Tile128 (conv_first)")
+K3_GROUPS = ("K3 s8 wgmma level", "K3 s8 wgmma (tap, channel) route (conv_first)")
 TRACE_TRIES = 3
 
 
@@ -2573,7 +2602,7 @@ def _profile_group(name: str) -> str:
         return K3_GROUPS[0]
     if "conv3x3_wgmma" in name:
         return "K1/K2 bf16 wgmma level, 16x16 px x 128 ch"
-    if "conv3x3_kernel" in name:
+    if "conv3x3_tapk" in name:
         return K3_GROUPS[1]
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass", "sm90")):
@@ -2904,7 +2933,8 @@ def main() -> int:
         kernels = [phase_kernel(torch.float32, build_logs), phase_kernel(torch.bfloat16, build_logs)]
         (s2d_f32, k2_c128_f32), (s2d_bf16, k2_c128) = (phase_kernel_s2d(torch.float32, build_logs),
                                                        phase_kernel_s2d(torch.bfloat16, build_logs))
-        p_entry, (k3_entry, k3_fused) = phase_kernel_p(), phase_kernel_k3(build_logs)
+        p_entry, (k3_entry, k3_fused, k3_taps) = (phase_kernel_p(build_logs),
+                                                  phase_kernel_k3(build_logs))
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
             s2d_launches = phase_s2d(ctx)
@@ -2930,10 +2960,11 @@ def main() -> int:
         k2_c128_f32["launches"] = s2d_launches["fast f32"]
         p_entry["launches"] = int8_launches["int8_gemm"]
         k3_entry["launches"] = k3_fused["launches"] = int8_launches["conv_i8"]
+        k3_taps["launches"] = int8_launches["conv_i8 wgmma_taps"]
         p_entry["launches_end2end"] = e2e_launches["int8 calibrate"]["P"]
         k3_entry["launches_end2end"] = k3_fused["launches_end2end"] = (
             e2e_launches["int8 calibrate"]["K3"])
-        kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused]
+        kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused, k3_taps]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

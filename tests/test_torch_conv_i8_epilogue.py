@@ -183,7 +183,7 @@ def test_epilogue_scalars_are_rounded_as_torch_rounds_them():
 
 def test_routes():
     assert [k3.route(c) for c in (4, 32, 64, 96, 128, 384, 640)] == \
-        ["mma.sync", "mma.sync", "mma.sync", "mma.sync", "wgmma", "wgmma", "wgmma"]
+        ["wgmma_taps", "wgmma_taps", "wgmma_taps", "wgmma_taps", "wgmma", "wgmma", "wgmma"]
 
 
 def test_wrapper_refuses_what_it_cannot_take():

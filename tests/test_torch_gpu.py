@@ -24,10 +24,12 @@ K2's library holds HGMMA and no mma.sync (HMMA). The f32 levels of both blocks r
 cover both widths, ragged edges, and tile counts below and far above the
 resident blocks of its persistent grid.
 
-K3 runs at Cin % 128 == 0 the s8 twin of K1's wgmma level and otherwise
-(conv_first) the mma.sync Tile128, both with the int8 forward's epilogue
-inside: each fused variant must equal, bit for bit, its plain composition
-(the float64 convolution and the torch epilogue) run on the card.
+K3 runs at Cin % 128 == 0 the s8 twin of K1's wgmma level and at any
+other Cin (conv_first) the (tap, channel) wgmma route, both with the int8
+forward's epilogue inside: each fused variant must equal, bit for bit, its
+plain composition (the float64 convolution and the torch epilogue) run on
+the card. The SASS of K3's and P's libraries holds the s8 wgmma (IGMMA) in
+every kernel and no mma.sync (IMMA, HMMA).
 
 Serving: two replicas of the engine on one card (a mesh of ("cuda:0",
 "cuda:0")) against one card in f32, bf16 and int8; every kernel's entry
@@ -457,7 +459,12 @@ def test_int8_gemm_is_exact(cuda, mkn):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,w,cin,cout,prefix", [
-    (2, 13, 21, 4, 128, None),  # conv_first: Cin 4 padded to 32
+    (2, 13, 21, 4, 128, None),  # conv_first: Cin 4, on the (tap, channel) route
+    (2, 13, 21, 3, 128, None),  # a partial word of channels
+    (1, 11, 19, 3, 128, 5),  # odd pixel stride: the halo put together from bytes
+    (1, 19, 33, 32, 128, 40),  # a channel prefix of a wider buffer
+    (2, 9, 17, 64, 256, None),  # two groups of 128 output channels
+    (1, 21, 18, 96, 128, 99),  # a prefix at an odd stride
     (1, 16, 16, 384, 128, 640),  # a dense level reading a concat prefix in place
     (1, 9, 17, 128, 512, None),  # upconv
     (2, 8, 16, 640, 128, None),
@@ -472,6 +479,7 @@ def test_conv_i8_is_exact(cuda, b, h, w, cin, cout, prefix):
     before = conv_i8.launches
     out = conv_i8(x8, w8.to(cuda)).cpu()
     assert conv_i8.launches == before + 1
+    print(f"K3 {k3.route(cin)} {(b, h, w, cin)} -> {cout}, pixel stride {x8.stride(2)}")
     assert torch.equal(out, conv_i8_reference(full[..., :cin], w8))
 
 
@@ -603,22 +611,33 @@ def test_k3_refuses_misaligned_or_ill_strided_output(cuda):
 
 @pytest.mark.gpu
 def test_k3_s8_level_is_warpgroup_mma(cuda):
-    # the s8 level runs wgmma (IGMMA in the SASS), and only conv_first's
-    # Tile128 keeps mma.sync (IMMA); the bf16 wgmma level keeps its 72 HGMMA
+    # both K3 routes run the s8 wgmma (IGMMA in the SASS), and K3's library
+    # holds no mma.sync (IMMA, HMMA) at all; the bf16 wgmma level keeps its
+    # 72 HGMMA
     ops = ("IGMMA", "HGMMA", "IMMA", "HMMA")
     k3_counts = _sass_counts("conv_i8", ops)
     print(k3_counts)
     wg = {fn: c for fn, c in k3_counts.items() if "conv3x3_wgmma_kernel" in fn}
-    tile = {fn: c for fn, c in k3_counts.items() if "conv3x3_kernel" in fn}
-    assert len(wg) == 1 and len(tile) == 1
-    for c in wg.values():
-        assert c["IGMMA"] > 0 and c["IMMA"] == c["HGMMA"] == c["HMMA"] == 0, c
-    for c in tile.values():
-        assert c["IMMA"] > 0 and c["IGMMA"] == 0, c
+    taps = {fn: c for fn, c in k3_counts.items() if "conv3x3_tapk_kernel" in fn}
+    assert len(wg) == 1 and len(taps) == 7  # one (tap, channel) kernel per epilogue mode
+    for c in [*wg.values(), *taps.values()]:
+        assert c["IGMMA"] > 0 and c["HGMMA"] == 0, c
+    assert sum(c["IMMA"] + c["HMMA"] for c in k3_counts.values()) == 0, k3_counts
     bf16 = {fn: c for fn, c in _sass_counts("dense_block_s2d", ops).items()
             if "conv3x3_wgmma_kernel" in fn}
     print(bf16)
     assert [c["HGMMA"] for c in bf16.values()] == [72]
+
+
+@pytest.mark.gpu
+def test_int8_probe_is_warpgroup_mma(cuda):
+    # P proves the instruction K3 serves on: its kernel holds the s8 wgmma
+    # (IGMMA), and its library no mma.sync (IMMA, HMMA)
+    counts = _sass_counts("int8_gemm", ("IGMMA", "IMMA", "HMMA"))
+    print(counts)
+    probe = {fn: c for fn, c in counts.items() if "int8_gemm_kernel" in fn}
+    assert len(probe) == 1 and all(c["IGMMA"] > 0 for c in probe.values()), counts
+    assert sum(c["IMMA"] + c["HMMA"] for c in counts.values()) == 0, counts
 
 
 @pytest.mark.gpu

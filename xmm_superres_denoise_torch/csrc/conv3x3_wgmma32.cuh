@@ -83,17 +83,18 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
-#include "conv3x3_wgmma.cuh"  // ldmatrix_x4, keep, wgmma fence / commit / wait
+#include "conv3x3_wgmma.cuh"  // ldmatrix_x4
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace conv3x3_wgmma32 {
 
 using namespace tma;
-using conv3x3_wgmma::keep;
 using conv3x3_wgmma::ldmatrix_x4;
-using conv3x3_wgmma::wgmma_commit;
-using conv3x3_wgmma::wgmma_fence;
-using conv3x3_wgmma::wgmma_wait;
+using wgmma::keep;
+using wgmma::wgmma_commit;
+using wgmma::wgmma_fence;
+using wgmma::wgmma_wait;
 
 constexpr int TH = 16, TW = 16;  // output tile rows x columns (M = 256)
 constexpr int HALO_H = TH + 2, HALO_W = TW + 2;

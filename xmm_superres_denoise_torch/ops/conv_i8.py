@@ -18,18 +18,24 @@ convolution.
   launches the kernel of `csrc/conv_i8.cu` or raises; there is no
   fallback. For a CPU tensor it runs the plain version. x8 may be a
   channel prefix of a wider NHWC buffer (`buf[..., :cin]`): the kernel
-  reads it in place.
-* Routes (`route`): Cin % 128 == 0 runs the s8 `wgmma` level fed by TMA
-  (`csrc/conv3x3_wgmma.cuh`), any other Cin % 32 == 0 (conv_first) the
-  `mma.sync` Tile128 (`csrc/conv3x3_igemm.cuh`).
-* `pack_weights` lays the weights out once as (9, Cout, Cin32), Cin zero-
-  padded to a multiple of 32 (the s8 mma's K depth); the wrapper pads the
-  activations' channels to match, which adds zeros to every sum. Raw HWIO
+  reads it in place, with no padded copy.
+* Routes (`route`), both on `wgmma` m64n128k32 s8, the instruction the
+  probe P (`ops/int8_gemm.py`) checks: Cin % 128 == 0 runs the s8 `wgmma`
+  level fed by TMA (`csrc/conv3x3_wgmma.cuh`), "wgmma"; any other Cin
+  (conv_first's 4) the (tap, channel) route (`csrc/conv3x3_tapk.cuh`),
+  "wgmma_taps", with the weights resident in shared memory and the
+  epilogue's values and codes stored as whole lines.
+* `pack_weights` lays the weights out once for the route: (9, Cout, Cin)
+  for "wgmma"; for "wgmma_taps" (Cout, chunks * kc), K ordered (tap,
+  channel) over Cin rounded up to a multiple of 4, each 9 * ch run of K
+  zero-padded to a multiple of 32 bytes (the s8 k-step), and above 64
+  channels cut into chunks of 64 channels (`taps_geometry`). Raw HWIO
   weights are packed on every call.
 * Plain versions: `conv_i8_reference`, `F.conv2d` in float64, exact here
   (|sum| <= 9 * 640 * 127^2 < 2^53), cast to int32; `Epilogue.apply`, the
   torch epilogue of `ops/int8_forward.py` op for op.
-* `conv_i8.launches` counts kernel launches, raw and fused alike.
+* `conv_i8.launches` counts kernel launches, raw and fused alike, and
+  `conv_i8.route_launches` the launches of each route.
 * K3 serves inference only: with grad enabled and a float operand (the
   residual, the epilogue's scales or bias) that requires grad it raises
   `RuntimeError` (`refuse_grad`) on every device.
@@ -49,8 +55,9 @@ from .precision import lrelu, scalar_like
 
 Tensor = torch.Tensor
 
-_K_DEPTH = 32  # bytes of K per s8 mma k-step
+_K_DEPTH = 32  # bytes of K per s8 wgmma k-step
 _WGMMA_CHUNK = 128  # input channels per chunk of the wgmma route
+_TAPS_CHUNK = 64  # input channels per K chunk of the (tap, channel) route
 _OUT_CHANNELS = 128  # output channels per block
 _MAX_GRID_Z = 65535
 _I, _P, _F = cuda_build.I, cuda_build.P, cuda_build.F32
@@ -66,28 +73,44 @@ class PackedI8(NamedTuple):
     """int8 HWIO weights and their kernel layout, made once."""
 
     hwio: Tensor  # (3, 3, Cin, Cout) int8, for the plain version
-    kernel: Tensor  # (9, Cout, Cin rounded up to 32) int8
+    kernel: Tensor  # the route's layout: (9, Cout, Cin) or (Cout, chunks * kc) int8
+
+
+def route(cin: int) -> str:
+    """The kernel a convolution over `cin` input channels runs on the card:
+    "wgmma" (Cin % 128 == 0) or "wgmma_taps" (any other Cin, conv_first's 4)."""
+    return "wgmma" if cin % _WGMMA_CHUNK == 0 else "wgmma_taps"
+
+
+def taps_geometry(cin: int) -> tuple:
+    """The (tap, channel) route's K layout for `cin` input channels:
+    (ch, chunks, kc): input channels per chunk (Cin rounded up to 4, at most
+    64), chunks over Cin, and bytes of K per chunk (9 * ch rounded up to
+    32). K byte `c * kc + tap * ch + i` of output channel o is weight
+    (tap // 3, tap % 3, c * ch + i, o), zero past Cin; `csrc/conv3x3_tapk.cuh:
+    geometry` lays it out alike."""
+    cin4 = cin + -cin % 4
+    ch = min(cin4, _TAPS_CHUNK)
+    chunks = -(-cin4 // ch)
+    return ch, chunks, 9 * ch + -(9 * ch) % _K_DEPTH
 
 
 def pack_weights(w8: Union[Tensor, np.ndarray], device="cpu") -> PackedI8:
-    """HWIO int8 weights -> `PackedI8` on `device`."""
+    """HWIO int8 weights -> `PackedI8` on `device`, laid out for the route
+    of their Cin (module docstring)."""
     hwio = torch.as_tensor(np.asarray(w8) if isinstance(w8, np.ndarray) else w8)
     if hwio.dtype != torch.int8 or hwio.dim() != 4 or tuple(hwio.shape[:2]) != (3, 3):
         raise ValueError(f"conv_i8 weights must be (3, 3, Cin, Cout) int8, got "
                          f"{tuple(hwio.shape)} {hwio.dtype}")
     hwio = hwio.to(device).contiguous()
     cin, cout = hwio.shape[2], hwio.shape[3]
-    kernel = hwio.reshape(9, cin, cout).transpose(1, 2)
-    pad = -cin % _K_DEPTH
-    if pad:
-        kernel = F.pad(kernel, (0, pad))
-    return PackedI8(hwio, kernel.contiguous())
-
-
-def route(cin: int) -> str:
-    """The kernel a convolution over `cin` input channels runs on the card:
-    "wgmma" (Cin % 128 == 0) or "mma.sync" (conv_first's padded 32)."""
-    return "wgmma" if (cin + -cin % _K_DEPTH) % _WGMMA_CHUNK == 0 else "mma.sync"
+    taps = hwio.reshape(9, cin, cout)
+    if route(cin) == "wgmma":
+        return PackedI8(hwio, taps.transpose(1, 2).contiguous())
+    ch, chunks, kc = taps_geometry(cin)
+    k = F.pad(taps, (0, 0, 0, chunks * ch - cin))  # (9, chunks * ch, Cout)
+    k = k.reshape(9, chunks, ch, cout).permute(3, 1, 0, 2).reshape(cout, chunks, 9 * ch)
+    return PackedI8(hwio, F.pad(k, (0, kc - 9 * ch)).reshape(cout, chunks * kc).contiguous())
 
 
 def quantize_i8(x: Tensor, scale: float) -> Tensor:
@@ -264,17 +287,22 @@ def conv_i8(x8: Tensor, w8: Union[Tensor, PackedI8], epilogue: Optional[Epilogue
     if x8.device.type != "cuda":
         raise ValueError(f"conv_i8 runs on cuda or cpu, got {x8.device}")
     b, h, w, _ = x8.shape
-    cin_k = packed.kernel.shape[2]
-    if cin_k != cin:  # pad the activations' channels as the weights were
-        x8 = F.pad(x8, (0, cin_k - cin))
+    wgmma = route(cin) == "wgmma"
     stride = _pixel_stride(x8)
-    if stride < 0 or stride % 16 or x8.data_ptr() % 16:
-        raise ValueError("conv_i8 kernel needs evenly spaced, 16-byte aligned NHWC pixels")
-    if cout % _OUT_CHANNELS or b * (cout // _OUT_CHANNELS) > _MAX_GRID_Z or b * h * w == 0:
+    if stride < 0 or (wgmma and (stride % 16 or x8.data_ptr() % 16)):
+        raise ValueError("conv_i8 kernel needs evenly spaced NHWC pixels, 16-byte aligned "
+                         "at Cin % 128 == 0")
+    if cout % _OUT_CHANNELS or (wgmma and b * (cout // _OUT_CHANNELS) > _MAX_GRID_Z) \
+            or b * h * w == 0:
         raise ValueError(f"conv_i8 kernel cannot take {tuple(x8.shape)} -> {cout} channels")
     if packed.kernel.device != x8.device or not packed.kernel.is_contiguous() \
             or packed.kernel.data_ptr() % 16:
         raise ValueError(f"conv_i8 weights must be contiguous and 16-byte aligned on {x8.device}")
+    _, chunks, kc = taps_geometry(cin)
+    layout = (9, cout, cin) if wgmma else (cout, chunks * kc)
+    if tuple(packed.kernel.shape) != layout:
+        raise ValueError(f"conv_i8 weights are packed as {tuple(packed.kernel.shape)}, the "
+                         f"{route(cin)} route takes {layout} (pack_weights)")
     if out is None and values is not None:
         out = torch.empty((b, h, w, cout), dtype=values, device=x8.device)
     if codes is None and writes_codes:
@@ -298,7 +326,7 @@ def conv_i8(x8: Tensor, w8: Union[Tensor, PackedI8], epilogue: Optional[Epilogue
     slope, alpha, qmul = scalars
     lib = cuda_build.library("conv_i8", _SIGNATURES)
     err = lib.conv_i8(
-        cuda_build.device_index(x8), x8.data_ptr(), b, h, w, stride, cin_k,
+        cuda_build.device_index(x8), x8.data_ptr(), b, h, w, stride, cin,
         packed.kernel.data_ptr(), cout, out_ptr, out_stride, codes_ptr, codes_stride,
         int(epilogue is None), int(epilogue is not None and epilogue.dtype == torch.bfloat16),
         c_o, bias, int(epilogue is not None and epilogue.slope is not None), slope, res,
@@ -306,7 +334,9 @@ def conv_i8(x8: Tensor, w8: Union[Tensor, PackedI8], epilogue: Optional[Epilogue
     )
     cuda_build.check(lib, "conv_i8", err, "conv_i8")
     conv_i8.launches += 1
+    conv_i8.route_launches[route(cin)] += 1
     return _result(out, codes, epilogue)
 
 
 conv_i8.launches = 0
+conv_i8.route_launches = {"wgmma": 0, "wgmma_taps": 0}

@@ -2,15 +2,19 @@
 
 Replaces the probe `kernel` of `scripts/device_probe_pallas_int8.py` of
 the JAX repository: an exact int8 matrix product with int32 sums at
-(2048, 128) x (128, 128). It is the warp tile that the s8 convolution K3
-(`ops/conv_i8.py`) is built on, and int8 serving runs it once when it
-builds its forward on a card (`check_int8_exact`), as the probe was the
-go/no-go check that the device's int8 sums are exact.
+(2048, 128) x (128, 128). int8 serving runs it once when it builds its
+forward on a card (`check_int8_exact`), as the probe was the go/no-go check
+that the device's int8 sums are exact. It proves the instruction that
+every convolution of int8 serving runs on (K3, `ops/conv_i8.py`, both
+routes): `wgmma.mma_async.m64n128k32.s32.s8.s8` with A from registers and
+B through a shared-memory descriptor with the 128-byte swizzle
+(`csrc/wgmma.cuh`).
 
 * `int8_gemm(a, b)`: a (M, K), b (K, N) int8, row-major; returns (M, N)
-  int32. K % 32 == 0, N % 8 == 0. For a CUDA tensor it launches the kernel
-  of `csrc/int8_gemm.cu` or raises; for a CPU tensor it runs the plain
-  version.
+  int32. K % 32 == 0, N % 8 == 0, any M; a block computes 64 x 128 of the
+  output and masks the ragged edges. For a CUDA tensor it launches the
+  kernel of `csrc/int8_gemm.cu` or raises; for a CPU tensor it runs the
+  plain version.
 * `int8_gemm_reference`: int64 `torch.matmul` (float64 on a card), cast
   to int32.
 * `int8_gemm.launches` counts kernel launches.
