@@ -6,6 +6,7 @@ Tolerance: predictions to 1e-5 x hr clamp_max (the products' full scale),
 far below the 1e-3 bar; the denormalized inputs to 1e-6 x lr clamp_max.
 """
 
+import json
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from xmm_superres_denoise_torch.infer.run_file import (
 )
 from xmm_superres_denoise_torch.io.fits import write_image
 from xmm_superres_denoise_torch.models.registry import build_model
+from xmm_superres_denoise_torch.utils import profiling as tprof
 from xmm_superres_denoise_torch.utils.weights import params_from_flax
 from xmm_superres_denoise_tpu import config as jcfg
 from xmm_superres_denoise_tpu.cli import load_run_config as jax_load_run_config
@@ -178,6 +180,82 @@ def test_out_of_memory_halves_the_batch(flat, monkeypatch):
         torch.cuda.OutOfMemoryError("simulated")))
     with pytest.raises(RuntimeError, match="batch_size=1"):
         engine.predict_tiles(raw, batch_size=1)
+
+
+def _engine_spans(path):
+    """{name: [(start, end), ...]} of the `engine.*` spans in a Chrome trace."""
+    spans: dict = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and str(e.get("name")).startswith("engine."):
+            spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    return spans
+
+
+def _inside(inner, outers):
+    return any(a <= inner[0] and inner[1] <= b for a, b in outers)
+
+
+def test_run_tiles_spans_nest_by_engine_stage(flat, tmp_path):
+    """Under `utils/profiling.trace`, `run_tiles` of 5 images at batch 2 is
+    one `engine.call` holding 3 launches (each a host staging and a shard's
+    upload, and a forward), 3 readbacks and one gather, in that order."""
+    engine = _port_engine(flat)
+    raw = np.random.default_rng(10).uniform(0, 2e-3, (5, *NATIVE)).astype(np.float32)
+    engine(raw[0])  # untraced
+    with tprof.trace(tmp_path):
+        engine.run_tiles(raw, batch_size=2)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    spans = _engine_spans(path)
+    print({k: len(v) for k, v in spans.items()})
+    assert {k: len(v) for k, v in spans.items()} == {  # no event to wait on, on the CPU
+        "engine.call": 1, "engine.launch": 3, "engine.upload": 6, "engine.forward": 3,
+        "engine.readback": 3, "engine.gather": 1,
+    }
+    assert all(_inside(s, spans["engine.call"]) for v in spans.values() for s in v)
+    for stage in ("engine.upload", "engine.forward"):
+        assert all(_inside(s, spans["engine.launch"]) for s in spans[stage])
+    assert not any(_inside(s, spans["engine.launch"]) for s in spans["engine.readback"])
+    (gather,) = spans["engine.gather"]
+    assert all(b <= gather[0] for _, b in spans["engine.readback"])
+
+
+def test_serving_enters_no_record_function_with_the_profiler_off(flat, monkeypatch):
+    engine = _port_engine(flat)
+    raw = np.random.default_rng(11).uniform(0, 2e-3, (3, *NATIVE)).astype(np.float32)
+    entered = []
+    for mod in (torch.profiler, torch.autograd.profiler):
+        monkeypatch.setattr(mod, "record_function", lambda *a, **k: entered.append(a))
+    engine.run_tiles(raw, batch_size=2)
+    engine.predict_tiles(raw, batch_size=2)
+    engine(raw[0])
+    assert entered == []
+
+
+def test_out_of_memory_retry_stays_inside_one_call_span(flat, tmp_path, monkeypatch):
+    """A chunk of 4 that runs out of memory in its launch is launched again
+    as two of 2 inside the same `engine.call`: three launches, two forwards
+    and readbacks, one gather."""
+    engine = _port_engine(flat)
+    raw = np.random.default_rng(13).uniform(0, 2e-3, (4, *NATIVE)).astype(np.float32)
+    real = engine._launch
+
+    def launch(rep, host, with_input):
+        if len(host) > 2:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
+        return real(rep, host, with_input)
+
+    monkeypatch.setattr(engine, "_launch", launch)
+    with tprof.trace(tmp_path):
+        engine.predict_tiles(raw, batch_size=4)
+    assert engine._serve_batch_cap == 2
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    spans = _engine_spans(path)
+    assert {k: len(spans[k]) for k in ("engine.call", "engine.launch", "engine.forward",
+                                       "engine.readback", "engine.gather")} == {
+        "engine.call": 1, "engine.launch": 3, "engine.forward": 2, "engine.readback": 2,
+        "engine.gather": 1,
+    }
+    assert all(_inside(s, spans["engine.call"]) for v in spans.values() for s in v)
 
 
 def test_bf16_engine_tracks_f32(flat):

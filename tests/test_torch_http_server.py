@@ -14,6 +14,7 @@ import gzip
 import json
 import socket
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -163,6 +164,48 @@ def test_http_gzipped_upload_and_stats(engine, tmp_path):
         assert stats["requests"] == 1 and stats["errors"] == 0
         assert stats["latency_ms"]["count"] == 1 and stats["latency_ms"]["p50"] > 0
         assert set(stats["latency_ms"]) == {"count", "p50", "p90", "p99"}
+
+
+def test_http_stats_report_the_queue_wait(engine, tmp_path):
+    with _Server(engine) as s:
+        status, _, _ = _post(s.url + "/infer", _detxy_bytes(tmp_path))
+        assert status == 200
+        status, stats = _get(s.url + "/stats")
+    assert status == 200
+    assert set(stats) == {"requests", "errors", "model", "latency_ms", "queue_wait_ms"}
+    wait = stats["queue_wait_ms"]
+    assert set(wait) == {"count", "p50", "p90", "p99"} and wait["count"] == 1
+    assert 0 <= wait["p50"] <= stats["latency_ms"]["p50"]
+
+
+def test_http_queue_wait_times_the_engine_lock(engine, tmp_path):
+    """A request that finds the engine busy waits for its lock, and
+    `queue_wait_ms` holds that wait, which `latency_ms` includes."""
+    body = _detxy_bytes(tmp_path)
+    busy, waiting = threading.Lock(), threading.Event()
+
+    class Lock:  # the engine's lock, held by the test until a request waits on it
+        def __enter__(self):
+            waiting.set()
+            busy.acquire()
+
+        def __exit__(self, *exc):
+            busy.release()
+
+    with _Server(engine) as s:
+        s.server.engine_lock = Lock()
+        done = []
+        busy.acquire()
+        client = threading.Thread(target=lambda: done.append(_post(s.url + "/infer", body)))
+        client.start()
+        assert waiting.wait(timeout=60)
+        time.sleep(0.3)
+        busy.release()
+        client.join(timeout=120)
+        status, stats = _get(s.url + "/stats")
+    assert done[0][0] == 200
+    assert stats["queue_wait_ms"]["count"] == 1
+    assert 300 <= stats["queue_wait_ms"]["p50"] <= stats["latency_ms"]["p50"]
 
 
 def test_http_error_paths(engine, tmp_path):

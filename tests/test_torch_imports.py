@@ -65,14 +65,20 @@ def test_port_sources_name_no_jax_package(path):
 
 
 def test_utils_and_run_file_load_neither_matplotlib_nor_the_profiler():
+    """`utils` alone loads none of its helpers. The engine loads the span
+    helper (`utils/profiling.py`: torch and the standard library, no FLOP
+    counter), and neither matplotlib, the image logger nor torch's FLOP
+    counter."""
     code = (
         "import sys\n"
-        "import xmm_superres_denoise_torch.utils, xmm_superres_denoise_torch.infer.run_file\n"
+        "import xmm_superres_denoise_torch.utils\n"
+        "early = [m for m in ('xmm_superres_denoise_torch.utils.profiling',\n"
+        "    'xmm_superres_denoise_torch.utils.imagelogger') if m in sys.modules]\n"
+        "import xmm_superres_denoise_torch.infer.run_file\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'matplotlib' or m in (\n"
-        "    'xmm_superres_denoise_torch.utils.profiling',\n"
         "    'xmm_superres_denoise_torch.utils.imagelogger', 'torch.utils.flop_counter'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(early, bad)\n"
+        "sys.exit(1 if early or bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,

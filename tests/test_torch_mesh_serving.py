@@ -181,6 +181,24 @@ def test_mesh_int8_calibrates_once_on_the_whole_batch(params, jax_tree, monkeypa
     assert pm_again.shape == (3, 64, 64)
 
 
+def test_mesh_spans_mark_every_shard(params):
+    """5 images at batch 3 over two CPU replicas: two launches, each
+    forwarding both shards inside it, and two readbacks."""
+    mesh = _engine(params, mesh=("cpu",) * 2)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        mesh.run_tiles(_raw(5, seed=9), batch_size=3)
+    spans: dict = {}
+    for e in prof.events():
+        if e.name.startswith("engine."):
+            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    assert {k: len(spans[k]) for k in ("engine.launch", "engine.forward",
+                                       "engine.readback")} == {
+        "engine.launch": 2, "engine.forward": 4, "engine.readback": 2}
+    for launch in spans["engine.launch"]:
+        inside = [f for f in spans["engine.forward"] if launch[0] <= f[0] and f[1] <= launch[1]]
+        assert len(inside) == 2
+
+
 def test_mesh_rejects_what_is_not_a_device_sequence(params):
     with pytest.raises(TypeError):
         _engine(params, mesh="cpu")

@@ -185,24 +185,6 @@ def test_fit_logs_images_as_the_jax_trainer(tmp_path, monkeypatch):
     assert worst["input"] <= 1e-6 and worst["generated"] <= 1e-5
 
 
-def test_step_timers_report_as_jax(monkeypatch):
-    out = []
-    for mod in (tprof, jprof):
-        ticks = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.125])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-        timers = mod.StepTimers()
-        for stage in ("load", "load", "step"):
-            with timers.time(stage):
-                pass
-        monkeypatch.undo()
-        out.append(timers)
-    summary = out[0].summary()
-    print(out[0].report())
-    assert summary == out[1].summary() and out[0].report() == out[1].report()
-    assert summary["load"] == {"total_s": 0.75, "count": 2, "mean_ms": 375.0}
-    assert summary["step"] == {"total_s": 0.125, "count": 1, "mean_ms": 125.0}
-
-
 def test_flops_estimate_counts_two_per_multiply_add():
     convs = torch.nn.Sequential(torch.nn.Conv2d(1, 8, 3, padding=1), torch.nn.ReLU(),
                                 torch.nn.Conv2d(8, 4, 3, padding=1))

@@ -11,7 +11,8 @@ mode is thread-local, so it must be entered in that thread).
 Endpoints:
 
 * ``GET /healthz``: liveness and model identity, JSON.
-* ``GET /stats``: request and error counts and latency percentiles.
+* ``GET /stats``: request and error counts, latency percentiles and the
+  percentiles of the wait for the engine lock (``queue_wait_ms``).
 * ``POST /infer[?product=prediction|input]``: the body is one FITS image,
   plain or gzipped. The response is the gzipped FITS product (by default
   the prediction), the bytes `cli.py infer` writes, with ``X-Xmmsr-*``
@@ -79,6 +80,7 @@ class InferenceHTTPServer(ThreadingHTTPServer):
         self.n_requests = 0
         self.n_errors = 0
         self.latencies_ms: deque = deque(maxlen=1024)
+        self.queue_waits_ms: deque = deque(maxlen=1024)
 
     def record(self, ok: bool, latency_ms: Optional[float] = None) -> None:
         with self.stats_lock:
@@ -88,22 +90,33 @@ class InferenceHTTPServer(ThreadingHTTPServer):
             elif latency_ms is not None:
                 self.latencies_ms.append(latency_ms)
 
+    def record_queue_wait(self, wait_ms: float) -> None:
+        """The wait of a request, served or not, for the engine lock."""
+        with self.stats_lock:
+            self.queue_waits_ms.append(wait_ms)
+
     def stats(self) -> dict:
         with self.stats_lock:
-            lat = np.asarray(self.latencies_ms, dtype=np.float64)
             out = {
                 "requests": self.n_requests,
                 "errors": self.n_errors,
                 "model": self.model_name,
             }
-            if lat.size:
-                out["latency_ms"] = {
-                    "count": int(lat.size),
-                    "p50": round(float(np.percentile(lat, 50)), 3),
-                    "p90": round(float(np.percentile(lat, 90)), 3),
-                    "p99": round(float(np.percentile(lat, 99)), 3),
-                }
+            for key, values in (("latency_ms", self.latencies_ms),
+                                ("queue_wait_ms", self.queue_waits_ms)):
+                if values:
+                    out[key] = _percentiles(values)
             return out
+
+
+def _percentiles(values) -> dict:
+    v = np.asarray(values, dtype=np.float64)
+    return {
+        "count": int(v.size),
+        "p50": round(float(np.percentile(v, 50)), 3),
+        "p90": round(float(np.percentile(v, 90)), 3),
+        "p99": round(float(np.percentile(v, 99)), 3),
+    }
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -184,10 +197,7 @@ class _Handler(BaseHTTPRequestHandler):
 
         t0 = time.monotonic()
         try:
-            blob, meta = _serve_one(
-                self.server.engine, self.server.engine_lock, body,
-                self.server.hr_exp_ks, self.server.model_name, product,
-            )
+            blob, meta = _serve_one(self.server, body, product)
         except BadInput as e:
             self.server.record(ok=False)
             self._send_json(400, {"error": f"cannot serve input: {e}"})
@@ -212,15 +222,11 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def _serve_one(
-    engine: InferenceEngine,
-    engine_lock: threading.Lock,
-    body: bytes,
-    hr_exp_ks: float,
-    model_name: str,
-    product: str,
+    server: InferenceHTTPServer, body: bytes, product: str
 ) -> Tuple[bytes, dict]:
     """FITS request body -> (gzipped product FITS bytes, metadata), through
     the `write_products` path the file pipelines use."""
+    engine = server.engine
     try:
         rate, hdr, exposure = load_rate_image(body)
     except Exception as e:
@@ -232,13 +238,15 @@ def _serve_one(
             f"input resolution {lr} (expected the native detxy frame or "
             f"anything padding up to {lr}x{lr})"
         )
-    with engine_lock:  # one card: serialise device work across requests
+    t0 = time.monotonic()
+    with server.engine_lock:  # one card: serialise device work across requests
+        server.record_queue_wait((time.monotonic() - t0) * 1e3)
         pred, inp = engine(rate)
     with tempfile.TemporaryDirectory() as tmp:
         try:
             p_in, p_pred = write_products(
                 inp, pred, Path(tmp), Path("upload.fits"), exposure,
-                hr_exp_ks, model_name, hdr,
+                server.hr_exp_ks, server.model_name, hdr,
             )
         except KeyError as e:  # a WCS keyword missing from the uploaded header
             raise BadInput(

@@ -46,6 +46,7 @@ from ..models.registry import build_model
 from ..ops.precision import true_f32
 from ..ops.preprocess import crop, crop_fractions, pad_to_res
 from ..ops.stretch import Normalizer
+from ..utils.profiling import annotate
 
 log = logging.getLogger("xmmsr")
 
@@ -75,16 +76,18 @@ class _Readback:
         self.valid = valid
 
     def result(self) -> Tuple[np.ndarray, ...]:
-        arrays = []
-        for outs, event in self.parts:
-            if event is not None:
-                # a non-blocking copy read before its event completes
-                # yields stale bytes, and nothing reports it
-                event.synchronize()
-            arrays.append([o.numpy() for o in outs])
-        if len(arrays) == 1:
-            return tuple(a[: self.valid] for a in arrays[0])
-        return tuple(np.concatenate(col, axis=0)[: self.valid] for col in zip(*arrays))
+        with annotate("engine.readback"):
+            arrays = []
+            for outs, event in self.parts:
+                if event is not None:
+                    with annotate("engine.readback_wait"):
+                        # a non-blocking copy read before its event completes
+                        # yields stale bytes, and nothing reports it
+                        event.synchronize()
+                arrays.append([o.numpy() for o in outs])
+            if len(arrays) == 1:
+                return tuple(a[: self.valid] for a in arrays[0])
+            return tuple(np.concatenate(col, axis=0)[: self.valid] for col in zip(*arrays))
 
 
 class InferenceEngine:
@@ -115,6 +118,9 @@ class InferenceEngine:
     replicas on one card, or on the CPU). int8 scales are calibrated once,
     on `mesh[0]` over the whole first batch, and every replica's forward is
     built from them.
+
+    The engine marks its stages as `engine.*` spans (`utils/profiling.py:
+    annotate`) for a profiler that records.
     """
 
     # chunks whose device work stays queued ahead of the host readback of
@@ -251,45 +257,51 @@ class InferenceEngine:
         (host outputs, event); on the CPU the outputs are final and the
         event is None."""
         on_card = rep.device.type == "cuda"
-        t = host.to(rep.device, non_blocking=True) if on_card else host
-        x = self._prepare(rep, t)
-        outs = [self.normalizer.denormalize_hr(self._predict(rep, x))[..., 0]]
-        if with_input:
-            outs.append(self.normalizer.denormalize_lr(x)[..., 0])
+        with annotate("engine.upload"):
+            t = host.to(rep.device, non_blocking=True) if on_card else host
+        with annotate("engine.forward"):
+            x = self._prepare(rep, t)
+            outs = [self.normalizer.denormalize_hr(self._predict(rep, x))[..., 0]]
+            if with_input:
+                outs.append(self.normalizer.denormalize_lr(x)[..., 0])
         if not on_card:
             return outs, None
-        pinned = []
-        for o in outs:
-            buf = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-            buf.copy_(o, non_blocking=True)
-            pinned.append(buf)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(rep.device))
+        with annotate("engine.readback_enqueue"):
+            pinned = []
+            for o in outs:
+                buf = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                buf.copy_(o, non_blocking=True)
+                pinned.append(buf)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(rep.device))
         return pinned, event
 
     @torch.inference_mode()
     def _run(self, raw: np.ndarray, with_input: bool) -> _Readback:
         """Launch one batch, (B, H, W) host rates, on the replicas; returns
         its readback, whose `result()` is (pred[, denormalized input])."""
-        raw = np.ascontiguousarray(raw, np.float32)
-        b = raw.shape[0]
-        reps = self._replicas
-        if len(reps) == 1 or b == 1:
-            reps = reps[:1]
-        else:
-            if self.quantize and reps[0].forward_i8 is None:
-                # calibrate once, on the whole batch before it is sharded
-                self._ensure_int8(self._prepare(reps[0], torch.from_numpy(raw).to(reps[0].device)))
-            pad = (-b) % len(reps)
-            if pad:
-                raw = np.concatenate([raw, np.repeat(raw[-1:], pad, axis=0)], axis=0)
-        host = torch.from_numpy(raw)
-        if self._cuda:
-            host = host.pin_memory()
-        step = host.shape[0] // len(reps)
-        parts = [self._launch(rep, host[i * step : (i + 1) * step], with_input)
-                 for i, rep in enumerate(reps)]
-        return _Readback(parts, b)
+        with annotate("engine.launch"):
+            raw = np.ascontiguousarray(raw, np.float32)
+            b = raw.shape[0]
+            reps = self._replicas
+            if len(reps) == 1 or b == 1:
+                reps = reps[:1]
+            else:
+                if self.quantize and reps[0].forward_i8 is None:
+                    # calibrate once, on the whole batch before it is sharded
+                    first = torch.from_numpy(raw).to(reps[0].device)
+                    self._ensure_int8(self._prepare(reps[0], first))
+                pad = (-b) % len(reps)
+                if pad:
+                    raw = np.concatenate([raw, np.repeat(raw[-1:], pad, axis=0)], axis=0)
+            with annotate("engine.upload"):
+                host = torch.from_numpy(raw)
+                if self._cuda:
+                    host = host.pin_memory()
+            step = host.shape[0] // len(reps)
+            parts = [self._launch(rep, host[i * step : (i + 1) * step], with_input)
+                     for i, rep in enumerate(reps)]
+            return _Readback(parts, b)
 
     def __call__(self, raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """raw (H, W) or (B, H, W) -> (prediction, denormalized padded input)."""
@@ -303,27 +315,28 @@ class InferenceEngine:
         request rerun until a size fits (floor 1). The working cap is
         remembered so later calls start there."""
         bs = min(batch_size, self._serve_batch_cap or batch_size)
-        while True:
-            try:
-                out = self._tiles_pipeline_once(raw, bs, with_input)
-                if bs < batch_size:
-                    self._serve_batch_cap = bs
-                return out
-            except torch.cuda.OutOfMemoryError as e:
-                if bs <= 1:
-                    raise RuntimeError(
-                        "device out of memory serving even batch_size=1 with "
-                        f"{self._INFLIGHT + 1} chunks in flight"
-                    ) from e
-                failed, bs = bs, max(1, bs // 2)
-                for dev in dict.fromkeys(self.devices):
-                    if dev.type == "cuda":
-                        with torch.cuda.device(dev):
-                            torch.cuda.empty_cache()
-                log.warning(
-                    "serve: device out of memory at batch %d; retrying at %d",
-                    failed, bs,
-                )
+        with annotate("engine.call"):
+            while True:
+                try:
+                    out = self._tiles_pipeline_once(raw, bs, with_input)
+                    if bs < batch_size:
+                        self._serve_batch_cap = bs
+                    return out
+                except torch.cuda.OutOfMemoryError as e:
+                    if bs <= 1:
+                        raise RuntimeError(
+                            "device out of memory serving even batch_size=1 with "
+                            f"{self._INFLIGHT + 1} chunks in flight"
+                        ) from e
+                    failed, bs = bs, max(1, bs // 2)
+                    for dev in dict.fromkeys(self.devices):
+                        if dev.type == "cuda":
+                            with torch.cuda.device(dev):
+                                torch.cuda.empty_cache()
+                    log.warning(
+                        "serve: device out of memory at batch %d; retrying at %d",
+                        failed, bs,
+                    )
 
     def _tiles_pipeline_once(self, raw, batch_size: int, with_input: bool):
         """Split (N, ...) into `batch_size` chunks and launch each; once
@@ -341,7 +354,8 @@ class InferenceEngine:
             pending.append(self._run(raw[i : i + batch_size], with_input))
             drain(self._INFLIGHT)
         drain(0)
-        return tuple(np.concatenate(lst, axis=0) for lst in outs)
+        with annotate("engine.gather"):
+            return tuple(np.concatenate(lst, axis=0) for lst in outs)
 
     def predict_tiles(self, raw: np.ndarray, batch_size: int = 32) -> np.ndarray:
         """Chunked batched serving: (N, H, W) -> (N, H', W') predictions."""

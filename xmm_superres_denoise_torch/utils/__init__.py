@@ -6,7 +6,6 @@ from typing import Any
 _EXPORTS = {
     "ImageLogger": "imagelogger",
     "setup_logging": "logging",
-    "StepTimers": "profiling",
     "annotate": "profiling",
     "flops_estimate": "profiling",
     "trace": "profiling",

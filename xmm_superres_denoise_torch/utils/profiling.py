@@ -4,8 +4,8 @@ The port of the JAX package's `utils/profiling.py` on PyTorch's own tools:
 `trace` captures a torch.profiler trace (host and, on a card, CUDA
 activity) of a region, or of its first N steps, and writes it as a Chrome
 trace (open it with chrome://tracing, Perfetto, or TensorBoard's profiler
-plugin); `annotate` names a region in that trace (`record_function`);
-`StepTimers` is a wall-clock timer registry for host pipeline stages;
+plugin); `annotate` names a region in that trace (`record_function`) while
+a profiler records, and costs one flag read otherwise;
 `flops_estimate` counts a function's FLOPs with `FlopCounterMode`.
 """
 
@@ -15,12 +15,11 @@ import contextlib
 import logging
 import os
 import socket
-import time
-from collections import defaultdict
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 log = logging.getLogger("xmmsr")
 
@@ -67,43 +66,20 @@ def trace(log_dir: Path, steps: Optional[int] = None) -> Iterator[Callable[[], N
         finish()
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region annotation visible in the trace."""
+    """A span named `name` in the trace of the profiler that is recording,
+    as `record_function`; a no-op context when no profiler records. A
+    `record_function` entered with the profiler off still costs about
+    10 us; the flag read here costs a fraction of one. The flag is the
+    process's, which torch's profiler sets in whichever thread it starts:
+    torch's own thread-local check reads false in other threads, and in
+    every thread under `profile_all_threads`."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
-
-
-class StepTimers:
-    """Accumulating wall-clock timers for host pipeline stages."""
-
-    def __init__(self):
-        self._total: Dict[str, float] = defaultdict(float)
-        self._count: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def time(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._total[name] += time.perf_counter() - t0
-            self._count[name] += 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {
-                "total_s": self._total[name],
-                "count": self._count[name],
-                "mean_ms": 1e3 * self._total[name] / max(self._count[name], 1),
-            }
-            for name in self._total
-        }
-
-    def report(self) -> str:
-        lines = [
-            f"{name:30s} {s['count']:6d}x  {s['mean_ms']:8.2f} ms  {s['total_s']:8.2f} s"
-            for name, s in sorted(self.summary().items())
-        ]
-        return "\n".join(lines)
 
 
 def flops_estimate(fn, *args) -> Optional[float]:
