@@ -1202,6 +1202,29 @@ def test_kernels_restore_the_callers_current_device(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_chunk_launch_makes_no_synchronising_call(cuda, mode):
+    """A warm engine's chunk launch (`_run`: the pinned upload, the forward,
+    the copies into pinned buffers and their event) makes no CUDA call that
+    blocks the host, so the chunks queued behind the oldest keep the card
+    busy while the host reads it back: a constant copied from pageable host
+    memory, for one, would synchronise the stream at each use."""
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    engine = _engine_on_card([cuda], dtype, quantize=mode == "int8")
+    raw = np.random.default_rng(43).uniform(0, 2e-3, (4, 30, 28)).astype(np.float32)
+    want, want_in = engine.run_tiles(raw, batch_size=2)  # built, packed, calibrated
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk = engine._run(raw[:2], with_input=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pred, inp = chunk.result()
+    np.testing.assert_array_equal(pred, want[:2])
+    np.testing.assert_array_equal(inp, want_in[:2])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_chunks_in_flight_equal_one_chunk_at_a_time(cuda, dtype, monkeypatch):
     """`_INFLIGHT` = 2 chunks queued ahead of the readback (pinned buffers,

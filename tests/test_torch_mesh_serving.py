@@ -138,6 +138,45 @@ def test_mesh_engine_matches_single_device(params, dtype, n):
     np.testing.assert_allclose(mesh.predict_tiles(raw, batch_size=4), got, rtol=RTOL, atol=ATOL)
 
 
+def _by_shard(single, raw, batch, n):
+    """The single-device engine called on each shard the mesh runs: every
+    chunk of `batch` padded to a multiple of `n` by its last image and split
+    (a chunk of 1 unsplit), the outputs gathered in order and trimmed."""
+    preds, inps = [], []
+    for i in range(0, len(raw), batch):
+        chunk = raw[i : i + batch]
+        padded = chunk
+        if len(chunk) > 1:
+            padded = np.concatenate([chunk, np.repeat(chunk[-1:], (-len(chunk)) % n, axis=0)])
+        step = len(padded) // (n if len(chunk) > 1 else 1)
+        outs = [single(padded[j : j + step]) for j in range(0, len(padded), step)]
+        preds.append(np.concatenate([o[0] for o in outs])[: len(chunk)])
+        inps.append(np.concatenate([o[1] for o in outs])[: len(chunk)])
+    return np.concatenate(preds), np.concatenate(inps)
+
+
+@pytest.mark.parametrize("n,images,batch", [(2, 5, 2), (2, 9, 3), (4, 5, 2)],
+                         ids=["2x5-at-2", "2x9-at-3", "4x5-at-2"])
+def test_mesh_run_tiles_puts_every_shard_in_its_rows(params, n, images, batch):
+    """Each shard is copied into its own rows of the call's arrays, the mesh
+    padding trimmed: equal bit for bit to the single-device engine run on
+    the same shards, and to its `run_tiles` within the mesh tolerance. At
+    9 at batch 3 every chunk has a padded shard; at 5 over 4 replicas at
+    batch 2 two of each full chunk's shards are all padding."""
+    single = _engine(params)
+    mesh = _engine(params, mesh=("cpu",) * n)
+    raw = _raw(images, seed=40 + images)
+    got, got_in = mesh.run_tiles(raw, batch_size=batch)
+    want, want_in = _by_shard(single, raw, batch, n)
+    assert got.shape == (images, 64, 64) and got_in.shape == (images, 32, 32)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_in, want_in)
+    tiles, tiles_in = single.run_tiles(raw, batch_size=batch)
+    np.testing.assert_allclose(got, tiles, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got_in, tiles_in)
+    np.testing.assert_array_equal(mesh.predict_tiles(raw, batch_size=batch), got)
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_mesh_engine_matches_jax_mesh_engine(params, jax_tree, n):
     mesh = _engine(params, mesh=("cpu",) * n)

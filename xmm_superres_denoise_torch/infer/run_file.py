@@ -14,7 +14,10 @@ forward (`ops/int8_forward.py`, every int8 convolution on the K3 kernel).
 each, as JAX's `NamedSharding(mesh, P("data"))` does from one process.
 Chunks are pipelined: up to `_INFLIGHT` chunks' device work is queued
 ahead of the host readback of the oldest, which lands in pinned buffers
-through non-blocking copies, each guarded by a CUDA event.
+through non-blocking copies, each guarded by a CUDA event. As each chunk
+is read back its rows are copied into the call's output arrays, while the
+later chunks still run on the card; every call's arrays are fresh, and no
+later call reuses them.
 
 `serve_files` serves a set of files through one warm engine and
 `watch_and_serve` polls directories as a daemon; the HTTP service is
@@ -65,29 +68,60 @@ class _Replica:
 
 
 class _Readback:
-    """The host copies of one launched chunk: per shard, its pinned output
-    buffers and the CUDA event recorded after their copies (None on the
-    CPU, where the arrays are final). `result()` waits for each event
-    before the bytes are read, gathers the shards in order and trims the
-    mesh padding."""
+    """The host copies of one launched chunk: per shard, its output buffers
+    (pinned on a card, final on the CPU) and the CUDA event recorded after
+    their copies (None on the CPU). `result()` waits for each event before
+    the bytes are read. A chunk of one shard read back on its own returns
+    views of its buffers; otherwise each shard is copied into its rows of
+    the output arrays, the mesh padding trimmed, and the buffers are left to
+    the caching host allocator for a later chunk."""
 
     def __init__(self, parts, valid: int):
         self.parts = parts
         self.valid = valid
 
-    def result(self) -> Tuple[np.ndarray, ...]:
+    def empty(self, rows: int) -> Tuple[np.ndarray, ...]:
+        """Fresh host arrays of `rows` images, one per output of the chunk."""
+        return tuple(np.empty((rows, *b.shape[1:]), np.float32) for b in self.parts[0][0])
+
+    def result(self, outs: Optional[Tuple[np.ndarray, ...]] = None,
+               row: int = 0) -> Tuple[np.ndarray, ...]:
+        """The chunk's outputs, trimmed to its valid images. With `outs`
+        they are copied into rows `row:` of those arrays, which are
+        returned; without, a chunk of one shard returns views of its
+        buffers, one of several shards fresh arrays."""
         with annotate("engine.readback"):
-            arrays = []
-            for outs, event in self.parts:
-                if event is not None:
-                    with annotate("engine.readback_wait"):
-                        # a non-blocking copy read before its event completes
-                        # yields stale bytes, and nothing reports it
-                        event.synchronize()
-                arrays.append([o.numpy() for o in outs])
-            if len(arrays) == 1:
-                return tuple(a[: self.valid] for a in arrays[0])
-            return tuple(np.concatenate(col, axis=0)[: self.valid] for col in zip(*arrays))
+            if outs is None and len(self.parts) == 1:
+                (bufs, event), = self.parts
+                self._wait(event)
+                return tuple(b.numpy()[: self.valid] for b in bufs)
+            if outs is None:
+                outs = self.empty(self.valid)
+            dst = [torch.from_numpy(o[row : row + self.valid]) for o in outs]
+            for d in dst:
+                # fresh pages fault on first touch: take that cost while the
+                # card still runs this chunk, so the copy after the wait does not
+                d.zero_()
+            for _, event in self.parts:
+                self._wait(event)
+            with annotate("engine.gather"):
+                lo = 0
+                for bufs, _ in self.parts:
+                    n = min(len(bufs[0]), self.valid - lo)
+                    if n <= 0:
+                        break  # the rest is mesh padding
+                    for d, b in zip(dst, bufs):
+                        d[lo : lo + n].copy_(b[:n])
+                    lo += n
+            return outs
+
+    @staticmethod
+    def _wait(event) -> None:
+        if event is not None:
+            with annotate("engine.readback_wait"):
+                # a non-blocking copy read before its event completes
+                # yields stale bytes, and nothing reports it
+                event.synchronize()
 
 
 class InferenceEngine:
@@ -118,6 +152,11 @@ class InferenceEngine:
     replicas on one card, or on the CPU). int8 scales are calibrated once,
     on `mesh[0]` over the whole first batch, and every replica's forward is
     built from them.
+
+    `run_tiles` and `predict_tiles` return arrays allocated fresh for the
+    call, each chunk copied in as it is read back; no later call writes
+    them. `__call__` returns views of the batch's pinned buffers (fresh
+    arrays on a mesh).
 
     The engine marks its stages as `engine.*` spans (`utils/profiling.py:
     annotate`) for a profiler that records.
@@ -340,22 +379,25 @@ class InferenceEngine:
 
     def _tiles_pipeline_once(self, raw, batch_size: int, with_input: bool):
         """Split (N, ...) into `batch_size` chunks and launch each; once
-        more than `_INFLIGHT` chunks are queued, read back the oldest.
-        Returns the concatenated host arrays."""
-        outs: List[list] = [[], []] if with_input else [[]]
-        pending: deque = deque()
+        more than `_INFLIGHT` chunks are queued, read back the oldest into
+        its rows of the call's output arrays. The arrays are allocated once
+        the card has the first chunk, fresh for each call; they are
+        returned."""
+        outs = None
+        pending: deque = deque()  # (first row, readback)
 
         def drain(limit: int) -> None:
             while len(pending) > limit:
-                for lst, arr in zip(outs, pending.popleft().result()):
-                    lst.append(arr)
+                row, chunk = pending.popleft()
+                chunk.result(outs, row)
 
         for i in range(0, raw.shape[0], batch_size):
-            pending.append(self._run(raw[i : i + batch_size], with_input))
+            pending.append((i, self._run(raw[i : i + batch_size], with_input)))
+            if outs is None:
+                outs = pending[0][1].empty(raw.shape[0])
             drain(self._INFLIGHT)
         drain(0)
-        with annotate("engine.gather"):
-            return tuple(np.concatenate(lst, axis=0) for lst in outs)
+        return outs
 
     def predict_tiles(self, raw: np.ndarray, batch_size: int = 32) -> np.ndarray:
         """Chunked batched serving: (N, H, W) -> (N, H', W') predictions."""

@@ -40,8 +40,13 @@ def scalar_like(x: torch.Tensor, s: float) -> torch.Tensor:
     scalar is rounded to bf16 first. PyTorch multiplies in f32 with the
     scalar unrounded, which moves about a fifth of bf16 products by one ulp.
     A scalar of the tensor's own dtype reproduces JAX's rounding; in f32 the
-    scalar rounds to itself, so f32 results do not change."""
-    return torch.tensor(s, dtype=x.dtype, device=x.device)
+    scalar rounds to itself, so f32 results do not change.
+
+    The scalar is filled on `x.device`, rounded on the host as
+    `torch.tensor` rounds it. A tensor made on the host and copied to a card
+    is a pageable copy, which synchronises the stream: the host would wait
+    at every use for the card's queue to drain."""
+    return torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 def lrelu(x: torch.Tensor, slope: float) -> torch.Tensor:
