@@ -15,6 +15,14 @@ The port of the JAX package's `models/hat.py`:
 * RHAG: `depth` HABs + one OCAB + residual conv; `use_checkpoint`
   checkpoints each HAB, as the JAX package remats them.
 
+Tracing: each HAB, CAB and OCAB forward is a span (`zoo.hab`, `zoo.cab`,
+`zoo.ocab`; `utils/profiling.py: annotate`) and counts itself in a class
+attribute, process-wide as `ops/dense_block.py: dense_block.launches`:
+`HAB.calls`, `CAB.calls`, `OCAB.calls`, and `HAB.masked_attn_calls`, the
+HABs whose attention took the shift mask. A HAB checkpointed under
+autograd (`use_checkpoint`) runs its forward again in the backward, so
+there its counts double; serving runs under `inference_mode`.
+
 The production config (img 416, patch 16 -> input_resolution 26 > window
 16) keeps window 16 WITH shifted windows, unlike the other zoo members.
 """
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.precision import lrelu, scalar_like
+from ..utils.profiling import annotate
 from .swin_common import (
     LayerNorm,
     Mlp,
@@ -88,6 +97,8 @@ class ChannelAttention(nn.Module):
 class CAB(nn.Module):
     """conv -> GELU -> conv -> channel attention."""
 
+    calls = 0  # forwards (module docstring)
+
     def __init__(self, num_feat: int, compress_ratio: int = 3, squeeze_factor: int = 30):
         super().__init__()
         mid = num_feat // compress_ratio
@@ -96,11 +107,16 @@ class CAB(nn.Module):
         self.ca = ChannelAttention(num_feat, squeeze_factor)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.ca(conv(self.cab_2, F.gelu(conv(self.cab_0, x))))
+        CAB.calls += 1
+        with annotate("zoo.cab"):
+            return self.ca(conv(self.cab_2, F.gelu(conv(self.cab_0, x))))
 
 
 class HAB(nn.Module):
     """Hybrid Attention Block."""
+
+    calls = 0  # forwards (module docstring)
+    masked_attn_calls = 0  # forwards whose attention took the shift mask
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window_size: int = 7, shift_size: int = 0, compress_ratio: int = 3,
@@ -117,6 +133,11 @@ class HAB(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
     def forward(self, x: Tensor, x_size: Tuple[int, int], generator=None) -> Tensor:
+        HAB.calls += 1
+        with annotate("zoo.hab"):
+            return self._forward(x, x_size, generator)
+
+    def _forward(self, x: Tensor, x_size: Tuple[int, int], generator) -> Tensor:
         h, w = x_size
         b, l, c = x.shape
         ws, shift = self.ws, self.shift
@@ -125,7 +146,10 @@ class HAB(nn.Module):
         conv_x = self.conv_block(img).reshape(b, l, c)
         shifted = torch.roll(img, (-shift, -shift), dims=(1, 2)) if shift > 0 else img
         xw = window_partition(shifted, ws).reshape(-1, ws * ws, c)
-        attn = self.attn(xw, shift_mask(h, w, ws, shift, x.device))
+        mask = shift_mask(h, w, ws, shift, x.device)
+        if mask is not None:
+            HAB.masked_attn_calls += 1
+        attn = self.attn(xw, mask)
         attn = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
         if shift > 0:
             attn = torch.roll(attn, (shift, shift), dims=(1, 2))
@@ -149,6 +173,8 @@ def unfold_overlap_windows(x: Tensor, ws: int, owin: int) -> Tensor:
 class OCAB(nn.Module):
     """Overlapping cross-attention block."""
 
+    calls = 0  # forwards (module docstring)
+
     def __init__(self, dim: int, input_resolution: Tuple[int, int], window_size: int,
                  overlap_ratio: float, num_heads: int, mlp_ratio: float = 2.0,
                  qkv_bias: bool = True):
@@ -168,6 +194,11 @@ class OCAB(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
     def forward(self, x: Tensor, x_size: Tuple[int, int]) -> Tensor:
+        OCAB.calls += 1
+        with annotate("zoo.ocab"):
+            return self._forward(x, x_size)
+
+    def _forward(self, x: Tensor, x_size: Tuple[int, int]) -> Tensor:
         h, w = x_size
         b, l, c = x.shape
         ws, owin, nh = self.ws, self.owin, self.num_heads
