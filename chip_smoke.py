@@ -6,9 +6,9 @@
 Phases, each printing its result and its seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and what PyTorch sees;
-2. build: the four kernel libraries compiled with nvcc for sm_90a, all at
+2. build: the five kernel libraries compiled with nvcc for sm_90a, all at
    once (ptxas reports): K2 dense_block, K1 dense_block_s2d, P int8_gemm,
-   K3 conv_i8;
+   K3 conv_i8, window_attention;
 3. kernel: each kernel held against its plain PyTorch version at the shapes
    the main paths give it, and timed with CUDA events beside the plain
    version, a library call where one computes the same function, and its
@@ -32,7 +32,13 @@ Phases, each printing its result and its seconds:
    the route each took (the 128-channel s8 wgmma level, or the (tap,
    channel) wgmma route at conv_first's Cin 4), TOP/s, share of the bound
    (conv_first: of its byte floor, raw and fused) and the route's ptxas
-   report and shared memory;
+   report and shared memory; the fused window attention at the zoo cells'
+   four shapes (SwinIR's 169 x 169, HAB's 256 x 256 with and without the
+   shift mask, OCAB's 256 x 576 on unfolded keys), finite and within
+   2^-7 (sum_j P_j |v_j| + |o|) + 1e-6 of its plain composition per element
+   (P the plain f32 probabilities: the f32 sums' order, one bf16 ulp of P
+   and of the output), timed beside the plain version and
+   `F.scaled_dot_product_attention` with a float mask, with its bound;
 4. serve: 4 synthetic Poisson detxy FITS (403x411, so padding is exercised)
    served by `serve_files` through `InferenceEngine` at full esr_gen width and
    depth (416^2 -> 832^2) with the trained weights, in f32 and in bf16. The
@@ -151,8 +157,12 @@ Phases, each printing its result and its seconds:
    bound, a traced forward of each by kernel group; then `cli fit` of
    swinir_sr at full width (batch 2, memory_efficient, one epoch of 8 steps
    on a 20-name synthetic tree, each step timed) and `cli test` of its best
-   checkpoint, bitwise equal to the fit's test. The zoo adds no kernel:
-   its attention, LayerNorm, FFT and convolutions are PyTorch's ops.
+   checkpoint, bitwise equal to the fit's test. The window attention
+   counter is read around the f32 and the bf16 forward at 416^2: none in
+   f32, and in bf16 one launch per attention (SwinIR and SwinFIR 36, DRCT
+   30, HAT 42, Restormer 0); the `kernels` line's window_attention entries
+   carry the count measured there. LayerNorm, FFT and convolutions are
+   PyTorch's ops.
 
 The `kernels` line's K2 f32 and bf16, P and K3 entries also carry
 `launches_end2end`, their launches in one `cli end2end` batch. The last two
@@ -1010,6 +1020,148 @@ def phase_kernel_k3(build_logs: dict) -> tuple:
             entries["taps"] = {**fused_entry, "name": "conv_i8[conv_first, wgmma_taps]",
                                "source": "xmm_superres_denoise_torch/csrc/conv3x3_tapk.cuh"}
     return entries["raw"], entries["fused"], entries["taps"]
+
+
+# the zoo cells' attention shapes at their serving batch of 4 images: (name,
+# query window, key window, masked, the zoo run whose forward launches it,
+# its blocks in that forward)
+WA_SHAPES = (("swinir_169x169", 13, 13, False, "swinir_sr", 36),
+             ("hab_256x256", 16, 16, False, "hat_sr", 18),
+             ("hab_256x256_shift_mask", 16, 16, True, "hat_sr", 18),
+             ("ocab_256x576", 16, 24, False, "hat_sr", 6))
+WA_IMAGES = 4
+WA_SFU_PER_S = 132 * 16 * 1.98e9  # exponentials a second: 16 a cycle an SM at 1.98 GHz
+
+
+def _wa_case(ws: int, owin: int, masked: bool, dev, seed=0):
+    """Seeded bf16 operands of one zoo attention at the serving batch, laid
+    out as the models lay them out: q, k, v strided views of one qkv
+    (WindowAttention), or q from ws windows and k, v the halves of the
+    unfolded owin windows (OCAB); the bias gathered from a bf16 table; the
+    shift mask of the 416^2 image's windows."""
+    from xmm_superres_denoise_torch.models.hat import rpi_oca, unfold_overlap_windows
+    from xmm_superres_denoise_torch.models.swin_common import (
+        index_buffer, relative_position_index, shift_mask, window_partition)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nh, c = 6, 180
+    d, side = c // nh, 416
+    qkv = torch.randn((WA_IMAGES, side, side, 3 * c), generator=g, device=dev).bfloat16()
+    n = ws * ws
+    if owin == ws:
+        win = window_partition(qkv, ws).reshape(-1, n, 3 * c)
+        q, k, v = win.reshape(-1, n, 3, nh, d).permute(2, 0, 3, 1, 4)
+        idx = relative_position_index(ws, ws)
+    else:
+        qw = window_partition(qkv[..., :c], ws).reshape(-1, n, c)
+        kv = unfold_overlap_windows(qkv[..., c:], ws, owin)
+        m = owin * owin
+        q = qw.reshape(-1, n, nh, d).transpose(1, 2)
+        k = kv[..., :c].reshape(-1, m, nh, d).transpose(1, 2)
+        v = kv[..., c:].reshape(-1, m, nh, d).transpose(1, 2)
+        idx = rpi_oca(ws, (owin - ws) / ws)
+    m = k.shape[2]
+    table = torch.randn(((ws + owin - 1) ** 2, nh), generator=g, device=dev).bfloat16() * 0.02
+    bias = table[index_buffer(idx).to(dev).view(-1)].view(n, m, nh).permute(2, 0, 1)
+    mask = shift_mask(side, side, ws, ws // 2, dev) if masked else None
+    return q, k, v, d ** -0.5, bias, mask
+
+
+def _wa_bound(q, k, v, scale, bias, mask, plain):
+    """Per-element bound of |kernel - plain|: 2^-7 (sum_j P_j |v_j| + |o|)
+    + 1e-6 with P the plain version's f32 probabilities. The two differ
+    only in the order of their f32 sums and, where that crosses a rounding
+    boundary, by one bf16 ulp of a probability (2^-7 P_j) and of the output
+    (2^-7 |o|); 1e-6 covers the sums' order where both round alike."""
+    qs = (q * torch.full((), scale, dtype=q.dtype, device=q.device)).float()
+    s = torch.matmul(qs, k.float().transpose(-2, -1))
+    if bias is not None:
+        s += bias.float()[None]
+    if mask is not None:
+        b_, nh, n, m = s.shape
+        nw = mask.shape[0]
+        s.view(b_ // nw, nw, nh, n, m).add_(mask[None, :, None])
+    p = torch.softmax(s, dim=-1)
+    del s
+    return 2.0**-7 * (torch.matmul(p, v.float().abs()) + plain.float().abs()) + 1e-6
+
+
+def phase_kernel_window_attention(build_logs: dict) -> list:
+    """The fused window attention at the zoo cells' shapes: the kernel
+    against its plain composition (finite, and within `_wa_bound` per
+    element, else AssertionError; max|diff| printed), CUDA-event times of the
+    kernel, the plain version and `F.scaled_dot_product_attention` with the
+    bias (and mask) as a float mask (the yardstick only: the port never
+    calls it), the kernel's device time (torch.profiler) and its bound."""
+    import torch.nn.functional as F
+
+    from xmm_superres_denoise_torch.ops.window_attention import (
+        window_attention, window_attention_plain)
+
+    dev = torch.device("cuda:0")
+    entries = []
+    for name, ws, owin, masked, run, blocks in WA_SHAPES:
+        t0 = time.perf_counter()
+        q, k, v, scale, bias, mask = _wa_case(ws, owin, masked, dev)
+        b_, nh, n, d = q.shape
+        m = k.shape[2]
+        with torch.inference_mode():
+            got = window_attention(q, k, v, scale, bias, mask)
+            plain = window_attention_plain(q, k, v, scale, bias, mask)
+            diff = (got.float() - plain.float()).abs()
+            err = float(diff.max())
+            over = float((diff / _wa_bound(q, k, v, scale, bias, mask, plain)).max())
+            finite = bool(torch.isfinite(got.float()).all())
+            same = float((got == plain).float().mean())
+            del got, plain, diff
+            ms = _time_ms(lambda: window_attention(q, k, v, scale, bias, mask))
+            dev_ms = _device_ms(lambda: window_attention(q, k, v, scale, bias, mask), iters=5)
+            plain_ms = _time_ms(lambda: window_attention_plain(q, k, v, scale, bias, mask), iters=5)
+            float_mask = bias.float()[None]
+            if mask is not None:
+                nw = mask.shape[0]
+                float_mask = (float_mask + mask[:, None]).repeat(b_ // nw, 1, 1, 1)
+            float_mask = float_mask.to(q.dtype).expand(b_, nh, n, m)
+            try:
+                library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=float_mask, scale=scale), iters=5)
+            except RuntimeError as e:
+                library_ms = None
+                say(f"[kernel] window_attention {name}: sdpa failed: {e}")
+            del float_mask
+        pairs = b_ * nh
+        nbytes = pairs * (2 * n * d + 2 * m * d) * 2  # q, k, v in, the output out
+        flops = pairs * 2 * 2 * n * m * 32  # q k^T and P v, d padded to 32
+        exps_ms = pairs * n * m / WA_SFU_PER_S * 1e3
+        bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
+        if exps_ms > bound_ms:
+            bound_ms, bound_by = exps_ms, "exponentials"
+        per_image = blocks / WA_IMAGES
+        say(
+            f"[kernel] window_attention {name} B_={b_} nh={nh} N={n} M={m} d={d}: max|diff| vs "
+            f"plain {err:.3e}, {over:.3f} of the bound at most ({same:.2%} bitwise equal, "
+            f"finite {finite}); CUDA events: kernel {ms:.4f} ms "
+            f"(device only {dev_ms:.4f}), plain {plain_ms:.4f} ms, sdpa with a float mask "
+            f"{library_ms if library_ms is None else f'{library_ms:.4f}'} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.3f} GB: {nbytes / 3.35e12 * 1e3:.4f} "
+            f"ms; {flops / 1e12:.3f} TFLOP: {flops / 989e12 * 1e3:.4f} ms; {pairs * n * m / 1e9:.3f}"
+            f" G exp: {exps_ms:.4f} ms); {blocks} a {run} forward: kernel {ms * per_image:.3f} "
+            f"ms an "
+            f"image, plain {plain_ms * per_image:.3f}; ptxas: "
+            f"{_ptxas_report(build_logs['window_attention'], 'window_attention_sm90_kernel')} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if not finite or not over <= 1.0:
+            raise AssertionError(f"window_attention {name} disagrees with its plain version: "
+                                 f"max|diff| {err}, {over} of the bound, finite {finite}")
+        entries.append({"name": f"window_attention {name}", "route": "cuda",
+                        "source": "xmm_superres_denoise_torch/csrc/window_attention.cu",
+                        "replaces": None, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "run": run, "blocks_per_forward": blocks,
+                        "launches_per_forward": None})  # from the zoo's bf16 forward of `run`
+        del q, k, v, bias, mask
+        torch.cuda.empty_cache()
+    return entries
 
 
 def _k3_forward_ops(b: int, h: int, w: int, blocks: int, group: int) -> int:
@@ -2682,6 +2834,10 @@ ZOO_F32_RTOL = 1e-4  # card f32 vs CPU f32 raw output, x max(1, max|CPU|)
 ZOO_BF16_DB = 30.0  # card bf16 vs card f32 at 416^2: 20 log10(max|f32| / RMS(bf16 - f32))
 ZOO_TIMED = 2  # warm batches timed per mode
 ZOO_FIT_BASE_NAMES = 20  # 16 train names: 8 steps at swinir_sr's batch of 2
+# window_attention launches in one bf16 forward: one per attention (SwinIR and
+# SwinFIR 6 x 6 Swin blocks, DRCT 6 x 5 dense blocks, HAT 36 HABs and 6 OCABs)
+ZOO_WA_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 30, "hat_sr": 42,
+                   "restormer_denoise": 0}
 ZOO_GROUPS = ("GEMM (cuBLAS)", "convolution (cuDNN)", "softmax", "LayerNorm", "FFT",
               "elementwise, copies and the rest")
 
@@ -2763,18 +2919,20 @@ def _events_ms(fn, x, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_zoo(tmp: Path) -> None:
+def phase_zoo(tmp: Path) -> dict:
     """The transformer zoo on the card: for each shipped run config, the
     model at full width with seeded weights written as a Flax-layout npz
     (`layers_scan` for HAT and DRCT), the 4 detxy files served through `cli
     serve` in f32 and bf16, the raw output (before the engine's clip) held
     to the CPU's f32 forward of the same weights at a small size, bf16 held
     to f32 at 416^2 in dB, engine ms per image (CUDA events), peak memory
-    and a traced bf16 and f32 forward; then `cli fit` / `test` of swinir_sr."""
+    and a traced bf16 and f32 forward; then `cli fit` / `test` of swinir_sr.
+    Returns each run's window_attention launches in its bf16 forward."""
     from xmm_superres_denoise_torch.cli import load_run_config
     from xmm_superres_denoise_torch.infer.run_file import InferenceEngine, load_rate_image
     from xmm_superres_denoise_torch.models.registry import build_model
     from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.ops.window_attention import window_attention
     from xmm_superres_denoise_torch.utils.weights import (
         load_params_npz,
         params_from_flax,
@@ -2784,6 +2942,7 @@ def phase_zoo(tmp: Path) -> None:
     t_all = time.perf_counter()
     files = _write_inputs(tmp)
     raw = np.stack([load_rate_image(f)[0] for f in files])
+    wa_launches = {}
     for i, run in enumerate(ZOO_RUNS):
         t0 = time.perf_counter()
         path = ROOT / "res/configs/runs" / f"{run}.toml"
@@ -2816,9 +2975,14 @@ def phase_zoo(tmp: Path) -> None:
                    "bf16": InferenceEngine(mc, ds, state, dtype=torch.bfloat16)}
         x = engines["f32"].prepare(torch.from_numpy(raw[:SERVE_BATCH]).to("cuda:0"))
         with torch.inference_mode():
+            window_attention.launches = 0
             with true_f32():
                 y32 = engines["f32"].model(x).float()
+            wa_f32 = window_attention.launches
+            window_attention.launches = 0
             y16 = engines["bf16"].model(x.bfloat16()).float()
+            torch.cuda.synchronize()
+            wa_launches[run] = window_attention.launches
         rms = float(torch.sqrt(torch.mean((y16 - y32) ** 2)))
         db = 20 * math.log10(float(y32.abs().max()) / max(rms, 1e-30))
 
@@ -2852,17 +3016,23 @@ def phase_zoo(tmp: Path) -> None:
             f"{peak['bf16']:.2f} GiB; {flops / 1e12:.3f} TFLOP per image (matmuls and "
             f"convolutions), bound f32 {bound['f32']:.2f} ms, bf16 {bound['bf16']:.2f} ms; card "
             f"f32 vs CPU f32 at {px}^2: max|diff| {err:.3e} (tol {tol:.1e}; CPU {cpu_s:.1f} s); "
-            f"bf16 vs f32 at {lr[0]}^2: {db:.2f} dB (min {ZOO_BF16_DB}) "
+            f"bf16 vs f32 at {lr[0]}^2: {db:.2f} dB (min {ZOO_BF16_DB}); window_attention "
+            f"launches in one forward of {SERVE_BATCH}: f32 {wa_f32}, bf16 {wa_launches[run]} "
+            f"(expected 0 and {ZOO_WA_LAUNCHES[run]}) "
             f"({time.perf_counter() - t0:.1f} s)")
         for mode in ("f32", "bf16"):
             say(f"[zoo]   {run} {mode} trace: {traces[mode]}")
         if not (err <= tol and db >= ZOO_BF16_DB and torch.isfinite(y32).all()
                 and torch.isfinite(y16).all()):
             raise AssertionError(f"[zoo] {run}: card vs CPU {err} (tol {tol}), bf16 {db} dB")
+        if wa_f32 != 0 or wa_launches[run] != ZOO_WA_LAUNCHES[run]:
+            raise AssertionError(f"[zoo] {run}: window_attention launches f32 {wa_f32}, bf16 "
+                                 f"{wa_launches[run]}, expected 0 and {ZOO_WA_LAUNCHES[run]}")
         del engines, model, cpu_model, x, y32, y16
         torch.cuda.empty_cache()
     _zoo_fit(tmp)
     say(f"[zoo] ({time.perf_counter() - t_all:.2f} s)")
+    return wa_launches
 
 
 def _zoo_fit(tmp: Path) -> None:
@@ -2935,6 +3105,7 @@ def main() -> int:
                                                        phase_kernel_s2d(torch.bfloat16, build_logs))
         p_entry, (k3_entry, k3_fused, k3_taps) = (phase_kernel_p(build_logs),
                                                   phase_kernel_k3(build_logs))
+        wa_entries = phase_kernel_window_attention(build_logs)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
             s2d_launches = phase_s2d(ctx)
@@ -2950,7 +3121,7 @@ def main() -> int:
         phase_train_routes()
         phase_profile(ctx)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_zoo_") as tmp:
-            phase_zoo(Path(tmp))
+            zoo_wa = phase_zoo(Path(tmp))
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
             entry["launches_end2end"] = e2e_launches[name]["K2"]
@@ -2961,10 +3132,13 @@ def main() -> int:
         p_entry["launches"] = int8_launches["int8_gemm"]
         k3_entry["launches"] = k3_fused["launches"] = int8_launches["conv_i8"]
         k3_taps["launches"] = int8_launches["conv_i8 wgmma_taps"]
+        for entry in wa_entries:
+            entry["launches_per_forward"] = zoo_wa[entry["run"]]
         p_entry["launches_end2end"] = e2e_launches["int8 calibrate"]["P"]
         k3_entry["launches_end2end"] = k3_fused["launches_end2end"] = (
             e2e_launches["int8 calibrate"]["K3"])
-        kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused, k3_taps]
+        kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused, k3_taps,
+                    *wa_entries]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

@@ -47,9 +47,6 @@ on the CPU (1e-4 relative, FSIM 5e-4); the data module's loader on the card
 against the same loader on the CPU.
 """
 
-import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -58,6 +55,7 @@ import torch
 
 import torch.nn.functional as F
 
+from _torch_sass import sass_counts
 from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_SR
 from xmm_superres_denoise_torch.ops import cuda_build
 from xmm_superres_denoise_torch.ops import conv_i8 as k3
@@ -345,29 +343,11 @@ def test_f32_level_refuses_misaligned_input(cuda):
         cuda_build.check(lib, "dense_block", err, "level 1")
 
 
-def _sass_counts(lib_name, ops):
-    """{kernel: {op: SASS lines}} of a built library, from cuobjdump."""
-    path, _, _ = cuda_build.build(lib_name)
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
-                          check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            counts[fn] = dict.fromkeys(ops, 0)
-        elif fn is not None:
-            for op in ops:
-                counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
-    return counts
-
-
 @pytest.mark.gpu
 def test_f32_level_is_ffma_only(cuda):
     # the f32 parity class has no TF32: the built f32 level kernels multiply
     # with FFMA and hold no tensor-core instruction (HMMA, HGMMA)
-    counts = _sass_counts("dense_block", ("FFMA", "HMMA", "HGMMA"))
+    counts = sass_counts("dense_block", ("FFMA", "HMMA", "HGMMA"))
     f32 = {fn: c for fn, c in counts.items() if "conv3x3_f32_kernel" in fn}
     print(f32)
     assert len(f32) == 2  # the 32- and 128-channel blocks
@@ -381,7 +361,7 @@ def test_bf16_level_at_c32_is_warpgroup_mma(cuda):
     # the bf16 level at C % 128 != 0 multiplies with wgmma (HGMMA), in both
     # forms (resident and streamed weights), and K2's library holds no
     # mma.sync (HMMA) at all
-    counts = _sass_counts("dense_block", ("HGMMA", "HMMA"))
+    counts = sass_counts("dense_block", ("HGMMA", "HMMA"))
     lvl = {fn: c for fn, c in counts.items() if "conv3x3_wgmma32_kernel" in fn}
     print(lvl)
     assert len(lvl) == 2
@@ -615,7 +595,7 @@ def test_k3_s8_level_is_warpgroup_mma(cuda):
     # holds no mma.sync (IMMA, HMMA) at all; the bf16 wgmma level keeps its
     # 72 HGMMA
     ops = ("IGMMA", "HGMMA", "IMMA", "HMMA")
-    k3_counts = _sass_counts("conv_i8", ops)
+    k3_counts = sass_counts("conv_i8", ops)
     print(k3_counts)
     wg = {fn: c for fn, c in k3_counts.items() if "conv3x3_wgmma_kernel" in fn}
     taps = {fn: c for fn, c in k3_counts.items() if "conv3x3_tapk_kernel" in fn}
@@ -623,7 +603,7 @@ def test_k3_s8_level_is_warpgroup_mma(cuda):
     for c in [*wg.values(), *taps.values()]:
         assert c["IGMMA"] > 0 and c["HGMMA"] == 0, c
     assert sum(c["IMMA"] + c["HMMA"] for c in k3_counts.values()) == 0, k3_counts
-    bf16 = {fn: c for fn, c in _sass_counts("dense_block_s2d", ops).items()
+    bf16 = {fn: c for fn, c in sass_counts("dense_block_s2d", ops).items()
             if "conv3x3_wgmma_kernel" in fn}
     print(bf16)
     assert [c["HGMMA"] for c in bf16.values()] == [72]
@@ -633,7 +613,7 @@ def test_k3_s8_level_is_warpgroup_mma(cuda):
 def test_int8_probe_is_warpgroup_mma(cuda):
     # P proves the instruction K3 serves on: its kernel holds the s8 wgmma
     # (IGMMA), and its library no mma.sync (IMMA, HMMA)
-    counts = _sass_counts("int8_gemm", ("IGMMA", "IMMA", "HMMA"))
+    counts = sass_counts("int8_gemm", ("IGMMA", "IMMA", "HMMA"))
     print(counts)
     probe = {fn: c for fn, c in counts.items() if "int8_gemm_kernel" in fn}
     assert len(probe) == 1 and all(c["IGMMA"] > 0 for c in probe.values()), counts

@@ -17,10 +17,13 @@ The port of the JAX package's `models/swin_common.py`:
   JAX package's mixed-precision training, and bf16 serving casts the model
   once, so the casts are no-ops.
 * Precision follows JAX where it is not the input's dtype: attention logits
-  are f32 from bf16 operands (JAX's `preferred_element_type=f32`; here q
-  and k are upcast, so the products are exact and the sum runs in f32),
-  the softmax runs in f32 and its result is cast back for `attn @ v`;
-  LayerNorm takes its statistics and its affine step in f32 and rounds
+  are f32 from bf16 operands (JAX's `preferred_element_type=f32`): in bf16
+  serving they are bf16 products on the tensor cores summed in f32 inside
+  the fused kernel of `ops/window_attention.py`; on the CPU, in f32 and
+  under autograd q and k are upcast and multiplied in f32 (the products of
+  bf16 values are exact in f32 either way, only the order of the sum
+  differs); the bias and mask are added in f32, the softmax runs in f32 and
+  its normalised result is cast back for `attn @ v`; LayerNorm takes its statistics and its affine step in f32 and rounds
   once (Flax's `LayerNorm` promotes to f32); a Python-float scalar meets a
   bf16 tensor rounded to bf16 first (`ops/precision.py: scalar_like`).
 * Initializers: timm's trunc_normal(std 0.02, cut at +-2 absolute) for
@@ -47,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.precision import scalar_like
+from ..ops.window_attention import window_attention
 from .rrdb import _checkpointed, pixel_shuffle
 
 Tensor = torch.Tensor
@@ -240,21 +243,11 @@ def checkpoint_block(block: nn.Module, use_checkpoint: bool, x: Tensor, *args,
 
 def attention_core(q: Tensor, k: Tensor, v: Tensor, scale: float,
                    bias: Optional[Tensor], mask: Optional[Tensor]) -> Tensor:
-    """softmax(q * scale @ k^T + bias [+ mask]) @ v over (B_, nh, N, d):
-    `q * scale` in the input dtype (the scalar rounded to it), the logits in
-    f32 from q and k upcast, bias (nh, N, M) and mask (nW, N, M) added in
-    f32, the softmax in f32 and cast back, `attn @ v` in the input dtype."""
-    dtype = q.dtype
-    q = q * scalar_like(q, scale)
-    attn = torch.matmul(q.float(), k.float().transpose(-2, -1))
-    if bias is not None:
-        attn = attn + bias[None]
-    if mask is not None:
-        b_, nh, n, m = attn.shape
-        nw = mask.shape[0]
-        attn = (attn.view(b_ // nw, nw, nh, n, m) + mask[None, :, None]).view(b_, nh, n, m)
-    attn = torch.softmax(attn, dim=-1).to(dtype)
-    return torch.matmul(attn, v)
+    """softmax(q * scale @ k^T + bias [+ mask]) @ v over (B_, nh, N, d),
+    bias (nh, N, M), mask (nW, N, M): `ops/window_attention.py:
+    window_attention`, the hand-written kernel in bf16 serving and the plain
+    composition on the CPU, in f32 and under autograd (module docstring)."""
+    return window_attention(q, k, v, scale, bias, mask)
 
 
 # --------------------------------------------------------------------------- #
