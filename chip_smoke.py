@@ -13,9 +13,10 @@ Phases, each printing its result and its seconds:
    the main paths give it, and timed with CUDA events beside the plain
    version, a library call where one computes the same function, and its
    bound: K2 at (2, 416, 416, 32) and K1 at (2, 208, 208, 128) in f32 (TF32
-   off) and bf16, with K2 also held on K1's inputs (C = 128, the fast
-   forward's shape; bf16 K2 runs K1's wgmma level there, and the bf16 line
-   adds that level's share of its bound and its ptxas report; the bf16 line
+   off) and bf16, with K2 also held on K1's inputs (C = 128, inside K2's
+   range, though no main path runs it there; bf16 K2 runs K1's wgmma level
+   there, and the bf16 line adds that level's share of its bound and its
+   ptxas report; the bf16 line
    at C = 32 adds the persistent wgmma level's share of the operation bound
    and of the five-launch traffic floor, its time at one full wave of items,
    ptxas report and shared memory; the f32 lines add the FFMA level's
@@ -47,14 +48,10 @@ Phases, each printing its result and its seconds:
    block, called explicitly here; the engine's chunks in flight (_INFLIGHT
    = 2) on the 4 images 8 times at batch 2 against one chunk at a time, in
    turns, bitwise equal to each other and to the served products;
-5. s2d: the same 4 prepared tiles through `make_s2d_sr_forward` (dense
-   blocks on K1) and `make_fast_rrdb_forward` (on K2) in f32 and bf16, at
-   batch 2, against that plain forward; and `make_s2d_dn_forward` at 416^2
-   with seeded weights against the plain DN forward;
-6. serve-int8: the same 4 files served through `InferenceEngine(quantize=
+5. serve-int8: the same 4 files served through `InferenceEngine(quantize=
    True)` in bf16 (int8 convolutions on K3, P's exactness check at build),
    held to the 40 dB int8 gate against the f32 plain forward;
-7. cli: the command line (`xmm_superres_denoise_torch.cli`) serving the
+6. cli: the command line (`xmm_superres_denoise_torch.cli`) serving the
    same 4 files with the run config and the trained checkpoint: `serve
    --bf16` in-process, bitwise equal to [serve]'s bf16 products; `serve
    --int8 --bf16 --int8_scales` twice with one fresh scales path, the first
@@ -63,7 +60,7 @@ Phases, each printing its result and its seconds:
    bitwise equal to [serve-int8]'s products and at the 40 dB gate; and one
    `python -m ... infer --bf16` subprocess, bitwise equal to `infer_file`
    in-process;
-8. mesh: serving on a data mesh of cards. (a) `cli serve --bf16 --mesh_data
+7. mesh: serving on a data mesh of cards. (a) `cli serve --bf16 --mesh_data
    -1` (every card: one on a one-card machine), bitwise equal to [cli]'s
    bf16 products; (b) `InferenceEngine(mesh=("cuda:0", "cuda:0"))`, two
    replicas on one card, serving the 4 files at batch 4 (two shards of 2)
@@ -75,10 +72,10 @@ Phases, each printing its result and its seconds:
    launches (one per replica's build), current_device unchanged, and
    run_tiles ms per image beside the single card's; (c) with more than one
    card, the same over cuda:0..N-1 (a line says when it does not run);
-9. http: `run_http_server` on 127.0.0.1 (a free port) in a thread over the
+8. http: `run_http_server` on 127.0.0.1 (a free port) in a thread over the
    bf16 engine: each file POSTed, each response bitwise equal to
    `infer_file`'s prediction, then /stats, then the stop event;
-10. events: a synthetic EPIC-pn event list of 4,194,304 events (DETX
+9. events: a synthetic EPIC-pn event list of 4,194,304 events (DETX
    -16120..16119, DETY -16440..16439: 411 x 403 at bin 80; PI 150..12000,
    PATTERN 0..12, some FLAG set; TIME from 5.6e8 s, with events exactly on
    each GTI edge and 1 s either side) in a PPS directory with its FBKTSR
@@ -88,7 +85,7 @@ Phases, each printing its result and its seconds:
    independent count written here (np.add.at): bitwise equal, for the EPN
    cuts and the EMOS mask; load s, host bin ms, card bin ms with and
    without the host->device copy, Mevents/s of each;
-11. end2end: the trained weights exported by the port as a full ONNX graph,
+10. end2end: the trained weights exported by the port as a full ONNX graph,
    run by the port's lite runtime on cuda:0 against the engine's f32
    forward on one prepared tile; `cli end2end --checkpoint weights.onnx` on
    [events]' PPS directory in f32, bf16 and int8 (twice on one fresh scales
@@ -97,7 +94,7 @@ Phases, each printing its result and its seconds:
    to `infer_file` through an engine loaded from the npz, int8 at the 40 dB
    gate; the same end2end as a `python -m` subprocess; `cli detxy`; `cli
    verify --onnx weights.onnx` on the 4 [serve] files; latency_s per mode;
-12. eval: a synthetic simulated dataset tree (80 base names at the
+11. eval: a synthetic simulated dataset tree (80 base names at the
    detector's geometry, AGN and background sets, written with the port's
    FITS codec) through `XmmDataModule` (the run config's dataset section,
    on cuda:0): the val loader's batch of 8 at 416^2 -> 832^2 through the
@@ -106,7 +103,7 @@ Phases, each printing its result and its seconds:
    collections computed on the CPU in float64 from the card's own
    predictions; ms per batch for the forward, the core and the extended
    metrics, and the loader's host ms per batch;
-13. train: training through the command line on the same tree, the shipped
+12. train: training through the command line on the same tree, the shipped
    esr_gen_sr run config at full width (batch 8, 416^2 -> 832^2, f32,
    s2d_train as shipped: the dense blocks on K1 through its gradient route)
    with only its epochs (2), checkpoint root and data directory changed:
@@ -121,11 +118,11 @@ Phases, each printing its result and its seconds:
    (that many optimizer steps, 60 K1 kernels each), its size and the seconds
    the profiler added; the image logger's panel (with matplotlib)
    and 2 x n FITS, and its SSIM map on the card against float64 on the CPU;
-14. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
+13. loss: the esr_gen_sr run config's composite loss (psnr 0.5 + ms_ssim 0.5,
    sqrt table) on a seeded (8, 832, 832, 1) pair, value and d loss / d preds
    on the card (TF32 off) against float64 on the CPU, and the warm
    forward+backward time;
-15. grad: one forward+backward of the full-width SR model (trained
+14. grad: one forward+backward of the full-width SR model (trained
    weights, f32, TF32 off, the run config's loss, batch 1 at 416^2 ->
    832^2, or 128^2 when the CPU reference would take over a minute) on the
    card, its dense blocks through `dense_block`'s autograd route (K2
@@ -134,18 +131,18 @@ Phases, each printing its result and its seconds:
    (`make_s2d_train_apply`: K1 forward, 60 launches) held to the same CPU
    gradients, with its f32 and bf16 times; one bf16 forward+backward; the
    inference-only `dense_block_s2d` and `conv_i8` refusing a gradient;
-16. train-routes: the measurements behind the S2D route's design at batch
+15. train-routes: the measurements behind the S2D route's design at batch
    8: a dense block's backward in the original domain (C = 32) against
    the S2D domain on cuDNN (C = 128, NCHW and channels_last), and the
    outer convolutions in both domains, f32 (TF32 off) and bf16;
-17. profile: one warm batch of each serving mode (model f32 and bf16, S2D
-   f32 and bf16, fast f32 and bf16, int8) traced with torch.profiler:
+16. profile: one warm batch of each serving mode (model f32 and bf16,
+   int8) traced with torch.profiler:
    device-busy time per image, idle share, and busy time by kernel group;
    a trace that lost some of the port's kernel launches is taken again;
    for int8 also its elementwise launches per batch and K3's time against
    the forward's int8 operations at the published peak.
 
-18. zoo: the transformer zoo's five shipped run configs (swinir_sr,
+17. zoo: the transformer zoo's five shipped run configs (swinir_sr,
    swinfir_sr, drct_sr_fsdp, hat_sr, restormer_denoise) at full width with
    seeded weights, each written as a Flax-layout npz (`layers_scan` for HAT
    and DRCT) and the 4 files served through `cli serve` in f32 and bf16;
@@ -165,7 +162,9 @@ Phases, each printing its result and its seconds:
    PyTorch's ops.
 
 The `kernels` line's K2 f32 and bf16, P and K3 entries also carry
-`launches_end2end`, their launches in one `cli end2end` batch. The last two
+`launches_end2end`, their launches in one `cli end2end` batch. K1's entries
+carry the launches of one S2D training step ([grad]); K2's C = 128 entries
+carry none, as no main path launches K2 there. The last two
 lines are a `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero. Without a CUDA
 card it exits non-zero at once and prints no result. All products go to a
@@ -201,7 +200,7 @@ SERVE_BATCH = 2
 PIPE_REPEAT = 8  # [serve]'s chunks in flight: the 4 images 8 times, 16 chunks of 2
 NATIVE_HW = (411, 403)  # numpy (NAXIS2, NAXIS1) of an EPIC-pn detxy image
 KERNEL_SHAPE = (2, 416, 416, 32)  # the trunk's dense-block input when serving
-S2D_SHAPE = (2, 208, 208, 128)  # the S2D trunk's dense-block input when serving
+S2D_SHAPE = (2, 208, 208, 128)  # the S2D route's dense-block input at batch 2, 416^2
 # 11 x 12 tiles of 16 x 16 px = 132 blocks, one per SM: the bf16 level with no
 # partial last wave (S2D_SHAPE has 338 tiles, 2.56 waves)
 ONE_WAVE_SHAPE = (1, 176, 192, 128)
@@ -244,8 +243,6 @@ SERVE_F32_RTOL = 2e-5
 SERVE_BF16_RTOL = 4 * 2.0**-8
 # int8 products vs the f32 plain forward: the JAX package's gate
 INT8_PSNR_DB = 40.0
-# the S2D DN forward (f32, seeded weights) vs the plain DN forward, [0, 1] scale
-DN_ATOL = 2e-5
 RUN_CONFIG = ROOT / "res/configs/runs/esr_gen_sr.toml"
 CHECKPOINT = ROOT / "docs/convergence_esr_gen/best_params.npz"
 # the composite loss on the card (TF32 off) vs float64 on the CPU
@@ -714,7 +711,7 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
         scale = ref.float().abs().max().item()
         tol = F32_ATOL * max(1.0, scale) if dtype == torch.float32 else BF16_ULPS * scale
         finite = bool(torch.isfinite(out).all())
-        # K2 at C = 128, as make_fast_rrdb_forward runs it, on the same inputs
+        # K2 at C = 128 (K1's level in bf16, the same FFMA level in f32), same inputs
         k2_out = dense_block(x, packed)
         k2_err = (k2_out.float() - ref.float()).abs().max().item()
         k2_finite = bool(torch.isfinite(k2_out).all())
@@ -757,8 +754,8 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cudnn {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP as computed, {nominal / 1e9:.1f} "
         f"nominal, {nbytes / 1e6:.1f} MB; achieved {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
-        f"S2D, {nominal / (ms * 1e-3) / 1e12:.2f} TFLOP/s nominal); dense_block (K2, the fast "
-        f"forward's block) on the same inputs: max|kernel-plain| {k2_err:.3e} (same tol), "
+        f"S2D, {nominal / (ms * 1e-3) / 1e12:.2f} TFLOP/s nominal); dense_block (K2 at C=128) "
+        f"on the same inputs: max|kernel-plain| {k2_err:.3e} (same tol), "
         f"K2 {k2_ms:.4f} ms beside K1 {ms:.4f} ms, K1/cudnn {ms / library_ms:.2f}, K2/cudnn "
         f"{k2_ms / library_ms:.2f}{level} ({time.perf_counter() - t0:.2f} s)"
     )
@@ -773,7 +770,8 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
         "route": "cuda",
         "source": F32_SOURCE if f32 else "xmm_superres_denoise_torch/csrc/dense_block.cu",
         "replaces": "xmm_superres_denoise_tpu/ops/pallas_rrdb.py:141",
-        "launches": None,  # filled from the fast forward's run
+        "launches": None,
+        "note": "no main path launches K2 at C = 128",
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": plain_ms,  # the same function's plain version, same inputs
@@ -786,7 +784,7 @@ def phase_kernel_s2d(dtype, build_logs: dict) -> dict:
         "route": "cuda",
         "source": F32_SOURCE if f32 else "xmm_superres_denoise_torch/csrc/dense_block_s2d.cu",
         "replaces": "xmm_superres_denoise_tpu/ops/pallas_dense_block.py:158",
-        "launches": None,  # filled from the s2d run
+        "launches": None,  # filled from [grad]'s S2D training step
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1175,82 +1173,6 @@ def _k3_forward_ops(b: int, h: int, w: int, blocks: int, group: int) -> int:
             + conv(h, w, group, group)            # trunk_conv
             + conv(h, w, group, 4 * group)        # upconv
             + conv(2 * h, 2 * w, group, group))   # HRconv, after d2s
-
-
-def _batched(fwd, x):
-    return torch.cat([fwd(x[i : i + SERVE_BATCH]) for i in range(0, len(x), SERVE_BATCH)])
-
-
-def _forward_ms(fwd, x) -> float:
-    """CUDA-event time of one warm batch, per image."""
-    batch = x[:SERVE_BATCH]
-    return _time_ms(lambda: fwd(batch), iters=3, warmup=1) / SERVE_BATCH
-
-
-def phase_s2d(ctx) -> dict:
-    from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
-    from xmm_superres_denoise_torch.ops.dense_block import dense_block, make_fast_rrdb_forward
-    from xmm_superres_denoise_torch.ops.dense_block_s2d import dense_block_s2d
-    from xmm_superres_denoise_torch.ops.precision import true_f32
-    from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_dn_forward, make_s2d_sr_forward
-
-    dev = torch.device("cuda:0")
-    engine, hr_max, ref = ctx["engine"], ctx["hr_max"], ctx["ref"]
-    model = GeneratorRRDB_SR()
-    params = ROOT / "docs/convergence_esr_gen/best_params.npz"
-    n_batches = math.ceil(SERVE_FILES / SERVE_BATCH)
-    launches = {}
-    with torch.inference_mode():
-        x = engine.prepare(torch.from_numpy(ctx["raw"]).to(dev))
-        for make, counter, label in ((make_s2d_sr_forward, dense_block_s2d, "s2d"),
-                                     (make_fast_rrdb_forward, dense_block, "fast")):
-            for dtype in (torch.float32, torch.bfloat16):
-                t0 = time.perf_counter()
-                name = "f32" if dtype == torch.float32 else "bf16"
-                fwd = make(model, params, dtype, device=dev)
-                torch.cuda.synchronize()
-                counter.launches = 0
-                pred = _batched(fwd, x)
-                torch.cuda.synchronize()
-                n = counter.launches
-                pred = engine.normalizer.denormalize_hr(pred.float().clamp(0, 1))[..., 0].cpu().numpy()
-                err = float(np.abs(pred - ref).max())
-                mse = float(np.mean(((pred - ref) / hr_max) ** 2))
-                ms = _forward_ms(fwd, x)
-                say(
-                    f"[s2d] {label} SR {name}: {n} {counter.__name__} launches for {n_batches} "
-                    f"batches of {SERVE_BATCH} (expected {60 * n_batches}); vs plain-block "
-                    f"forward max|diff| {err / hr_max:.3e} x hr_max, PSNR "
-                    f"{10 * np.log10(1.0 / max(mse, 1e-30)):.2f} dB; {ms:.3f} ms/image "
-                    f"(CUDA events, warm batch) ({time.perf_counter() - t0:.2f} s)"
-                )
-                tol = SERVE_F32_RTOL if dtype == torch.float32 else SERVE_BF16_RTOL
-                if n != 60 * n_batches:
-                    raise AssertionError(f"{label} {name}: {n} launches, expected {60 * n_batches}")
-                if not (np.isfinite(pred).all() and err <= tol * hr_max):
-                    raise AssertionError(f"{label} {name} forward too far from the plain forward: {err}")
-                launches[f"{label} {name}"] = n
-                ctx["profile"][f"{label} {name} ({'K1' if label == 's2d' else 'K2'})"] = (fwd, counter)
-
-        t0 = time.perf_counter()
-        dn = GeneratorRRDB_DN()
-        dn.reset_parameters(torch.Generator().manual_seed(0))
-        fwd = make_s2d_dn_forward(dn, dn.state_dict(), torch.float32, device=dev)
-        dn = dn.to(dev)
-        dense_block_s2d.launches = 0
-        got = _batched(fwd, x)
-        n = dense_block_s2d.launches
-        with true_f32():
-            want = _batched(lambda t: plain_forward(dn, t), x)
-        err = (got - want).abs().max().item()
-        say(
-            f"[s2d] S2D DN f32 416^2 -> 416^2, seeded weights: {n} dense_block_s2d launches; "
-            f"vs plain DN forward max|diff| {err:.3e} on [0, 1] (tol {DN_ATOL:.0e}) "
-            f"({time.perf_counter() - t0:.2f} s)"
-        )
-        if n != 60 * n_batches or not err <= DN_ATOL:
-            raise AssertionError(f"S2D DN forward: {n} launches, max|diff| {err}")
-    return launches
 
 
 def phase_serve_int8(ctx, tmp: Path) -> dict:
@@ -2077,12 +1999,14 @@ def _s2d_route_grads(model, loss, x, target, cpu_grads):
     return groups, launches, ms
 
 
-def phase_grad(ctx) -> None:
+def phase_grad(ctx) -> dict:
     """Gradients through K2: the full-width SR model with the trained
     weights, f32 with TF32 off, the run config's loss; one forward+backward
     on the card (dense blocks through `_DenseBlockFn`: K2 forward,
-    recomputed backward) against the same on the CPU model; a bf16
-    forward+backward; the inference-only ops' refusals."""
+    recomputed backward) against the same on the CPU model; the same
+    through the S2D training route (K1); a bf16 forward+backward; the
+    inference-only ops' refusals. Returns K1's launches in one S2D training
+    step, by dtype."""
     from xmm_superres_denoise_torch.cli import load_run_config
     from xmm_superres_denoise_torch.ops.conv_i8 import Epilogue, conv_i8
     from xmm_superres_denoise_torch.ops.dense_block import dense_block
@@ -2200,6 +2124,7 @@ def phase_grad(ctx) -> None:
     say(f"[grad] with a gradient needed, refused: {refused} ({time.perf_counter() - t0:.2f} s)")
     if refused != list(calls):
         raise AssertionError(f"[grad] inference-only ops refused {refused}, expected {list(calls)}")
+    return s2d_launches
 
 
 def _collections(dm, scalers):
@@ -3108,7 +3033,6 @@ def main() -> int:
         wa_entries = phase_kernel_window_attention(build_logs)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
-            s2d_launches = phase_s2d(ctx)
             int8_launches = phase_serve_int8(ctx, Path(tmp))
             phase_cli(ctx, Path(tmp))
             phase_mesh(ctx, Path(tmp))
@@ -3117,7 +3041,7 @@ def main() -> int:
             root = phase_eval(Path(tmp))
             phase_train(Path(tmp), root)
         phase_loss()
-        phase_grad(ctx)
+        k1_launches = phase_grad(ctx)
         phase_train_routes()
         phase_profile(ctx)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_zoo_") as tmp:
@@ -3125,10 +3049,8 @@ def main() -> int:
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
             entry["launches_end2end"] = e2e_launches[name]["K2"]
-        s2d_f32["launches"] = s2d_launches["s2d f32"]
-        s2d_bf16["launches"] = s2d_launches["s2d bf16"]
-        k2_c128["launches"] = s2d_launches["fast bf16"]
-        k2_c128_f32["launches"] = s2d_launches["fast f32"]
+        s2d_f32["launches"] = k1_launches["f32"]
+        s2d_bf16["launches"] = k1_launches["bf16"]
         p_entry["launches"] = int8_launches["int8_gemm"]
         k3_entry["launches"] = k3_fused["launches"] = int8_launches["conv_i8"]
         k3_taps["launches"] = int8_launches["conv_i8 wgmma_taps"]

@@ -2,13 +2,17 @@
 CPU, with the trained esr_gen weights (`docs/convergence_esr_gen/
 best_params.npz`) and the same numpy input, 1 x 32^2 on [0, 1].
 
+The `model-*` cases run the port's bf16 model forward, the `s2d_route-*`
+cases its S2D route (`model(x, s2d=True)`, the route a bf16 `s2d_train`
+run takes, dense blocks on K1); both against the same JAX forward.
+
 The two round in different places. JAX rounds to bf16 after every op: the
 engine runs the Flax model in bf16 (`model.apply` on bf16 params and input),
-the S2D forward runs XLA convolutions in bf16 and rounds after each conv,
-bias add, LeakyReLU, `* 0.2` and `+ x`. The port's dense blocks round once
-per level, as its CUDA kernels (K2, K1) do: f32 inside a level, one rounding
-at the store; on the CPU they run the plain versions, which keep that
-rounding. So the two need not agree bit for bit.
+rounding after each conv, bias add, LeakyReLU, `* 0.2` and `+ x`. The
+port's dense blocks round once per level, as its CUDA kernels (K2, K1) do:
+f32 inside a level, one rounding at the store; on the CPU they run the
+plain versions, which keep that rounding. So the two need not agree bit for
+bit.
 
 Bound: 4 bf16 ulps on the [0, 1] output range, 4 * 2^-8 = 1.5625e-2 (the
 port's bf16 class: "within 4 bf16 ulps of JAX bf16"). Each case prints its
@@ -26,10 +30,8 @@ import torch
 import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
 
 from xmm_superres_denoise_torch.models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
-from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_dn_forward, make_s2d_sr_forward
 from xmm_superres_denoise_torch.utils.weights import params_from_flax
 from xmm_superres_denoise_tpu import models as jmodels
-from xmm_superres_denoise_tpu.ops import s2d_forward as jsf
 
 PARAMS = Path(__file__).resolve().parents[1] / "docs/convergence_esr_gen/best_params.npz"
 BF16_4_ULPS = 4 * 2.0**-8  # on [0, 1]
@@ -52,9 +54,10 @@ def _trained(dn: bool):
     return tree, params_from_flax(flat)
 
 
-def _model_forwards(dn: bool):
+def _model_forwards(dn: bool, s2d: bool):
     """JAX: the Flax model applied in bf16, as the JAX engine runs it (params
-    and input cast to bf16). Port: the model cast to bf16."""
+    and input cast to bf16). Port: the model cast to bf16, on its model or
+    its S2D route."""
     tree, state = _trained(dn)
     jmodel = jmodels.GeneratorRRDB_DN() if dn else jmodels.GeneratorRRDB_SR()
     jtree = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), tree)
@@ -62,27 +65,14 @@ def _model_forwards(dn: bool):
     model.load_state_dict(state)
     model.to(torch.bfloat16)
     return (lambda x: jmodel.apply(jtree, jnp.asarray(x, jnp.bfloat16)),
-            lambda x: model(torch.from_numpy(x).bfloat16()))
+            lambda x: model(torch.from_numpy(x).bfloat16(), s2d=s2d))
 
 
-def _s2d_forwards(dn: bool):
-    """JAX and port S2D forwards built in bf16 from the same f32 weights."""
-    tree, _ = _trained(dn)
-    if dn:
-        want = jsf.make_s2d_dn_forward(jmodels.GeneratorRRDB_DN(), tree, dtype=jnp.bfloat16)
-        got = make_s2d_dn_forward(GeneratorRRDB_DN(), tree, dtype=torch.bfloat16, device="cpu")
-    else:
-        want = jsf.make_s2d_sr_forward(jmodels.GeneratorRRDB_SR(num_upsample=1), tree,
-                                       dtype=jnp.bfloat16)
-        got = make_s2d_sr_forward(GeneratorRRDB_SR(), tree, dtype=torch.bfloat16, device="cpu")
-    return (lambda x: want(jnp.asarray(x)), lambda x: got(torch.from_numpy(x)))
-
-
-@pytest.mark.parametrize("case", ["model-sr", "model-dn", "s2d-sr", "s2d-dn"])
+@pytest.mark.parametrize("case", ["model-sr", "model-dn", "s2d_route-sr", "s2d_route-dn"])
 def test_port_bf16_within_4_ulps_of_jax_bf16(case):
     kind, task = case.split("-")
     x = np.random.default_rng(11).uniform(0, 1, (1, 32, 32, 1)).astype(np.float32)
-    jax_fwd, port_fwd = (_model_forwards if kind == "model" else _s2d_forwards)(task == "dn")
+    jax_fwd, port_fwd = _model_forwards(task == "dn", s2d=kind == "s2d_route")
     want = np.asarray(jnp.asarray(jax_fwd(x), jnp.float32))
     with torch.inference_mode():
         out = port_fwd(x)

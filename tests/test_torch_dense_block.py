@@ -200,30 +200,3 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="cuda or cpu"):
         dense_block(torch.zeros(1, 4, 4, 32, device="meta"), *ws)
 
-
-def test_rrdb_fused_and_params_from_flax_match_jax_rrdb_pallas():
-    from xmm_superres_denoise_torch.ops.dense_block import rrdb_fused, rrdb_params_from_flax
-    from xmm_superres_denoise_tpu.ops.pallas_rrdb import rrdb_pallas
-    from xmm_superres_denoise_tpu.ops.pallas_rrdb import rrdb_params_from_flax as jax_params
-
-    x = np.random.default_rng(7).normal(size=(1, 8, 16, 8)).astype(np.float32)
-    rrdbs = {}
-    for i in range(2):
-        blocks = [_weights(8, seed=10 * i + k) for k in range(3)]
-        rrdbs[f"rrdb_{i}"] = {
-            f"RDB{k + 1}": {f"conv{j}": {"kernel": ws[2 * j - 2], "bias": ws[2 * j - 1]}
-                            for j in range(1, 6)}
-            for k, ws in enumerate(blocks)
-        }
-    params = {"params": {"trunk": rrdbs}}
-    port_blocks = rrdb_params_from_flax(params, 2)
-    for jb, tb in zip(jax_params(params, 2), port_blocks):
-        for jdense, tdense in zip(jb, tb):
-            for (jw, jbias), (tw, tbias) in zip(jdense, tdense):
-                np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
-                np.testing.assert_array_equal(tbias.numpy(), np.asarray(jbias))
-    want = np.asarray(rrdb_pallas(jnp.asarray(x), jax_params(params, 2)[1], tile=(8, 8),
-                                  interpret=True))
-    got = rrdb_fused(torch.from_numpy(x), port_blocks[1]).numpy()
-    print(f"max|rrdb_fused - rrdb_pallas interpret| {np.abs(got - want).max():.3e}")
-    np.testing.assert_allclose(got, want, **TOL)

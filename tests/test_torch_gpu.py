@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels (K2, K1, P, K3) against
-their plain versions, and the model and the S2D, fast and int8 forwards
-through them.
+their plain versions, and the model, the S2D training route and the int8
+forward through them.
 
 Every test here is marked `gpu` and skips without a CUDA card; whether a card
 is present is decided inside the `cuda` fixture, never at import. This file
@@ -304,7 +304,7 @@ def test_wgmma32_level_matches_plain_version(cuda, shape):
     (3, 37, 45, 32),     # ragged in both directions
     (2, 24, 40, 64),     # C = 64: two 32-channel groups
     (1, 13, 21, 128),    # one 128-channel group, ragged
-    (2, 208, 208, 128),  # K1's and the fast forward's block: 338 tiles on one-block SMs
+    (2, 208, 208, 128),  # K1's block: 338 tiles on one-block SMs
     (1, 13, 21, 256),    # two 128-channel groups
 ])
 def test_f32_level_matches_plain_version(cuda, shape):
@@ -638,29 +638,6 @@ def test_new_kernels_refuse_unsupported_input(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_s2d_and_fast_forwards_on_the_kernels_match_cpu(cuda, dtype):
-    from xmm_superres_denoise_torch.ops.dense_block import make_fast_rrdb_forward
-    from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_sr_forward
-
-    x = np.random.default_rng(2).uniform(0, 1, (2, 64, 64, 1)).astype(np.float32)
-    model = GeneratorRRDB_SR()
-    # f32: summation order only; bf16 against the f32 CPU forward: 4 bf16
-    # ulps at the top of the [0, 1] output range
-    atol = 1e-5 if dtype == torch.float32 else 4 * 2.0**-8
-    with torch.inference_mode():
-        ref = make_s2d_sr_forward(model, PARAMS, torch.float32, device="cpu")(torch.from_numpy(x))
-        for make, counter in ((make_s2d_sr_forward, dense_block_s2d), (make_fast_rrdb_forward, dense_block)):
-            fwd = make(model, PARAMS, dtype, device=cuda)
-            before = counter.launches
-            out = fwd(torch.from_numpy(x).to(cuda)).float().cpu()
-            assert counter.launches == before + 60
-            print(f"{make.__name__} {dtype}: max|card - cpu f32| "
-                  f"{(out - ref).abs().max().item():.3e} (atol {atol:.1e})")
-            np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=atol)
-
-
-@pytest.mark.gpu
 def test_int8_forward_on_k3_matches_cpu(cuda):
     from xmm_superres_denoise_torch.ops.int8_forward import calibrate_int8_scales, make_int8_s2d_forward
 
@@ -875,8 +852,6 @@ def test_dense_block_routes_by_grad_mode_on_the_card(cuda):
 
 @pytest.mark.gpu
 def test_inference_only_ops_refuse_a_gradient_on_the_card(cuda):
-    from xmm_superres_denoise_torch.ops.dense_block import make_fast_rrdb_forward, rrdb_fused
-
     x, ws = _block_inputs((1, 16, 104, 128), torch.float32, cuda, seed=5)
     with pytest.raises(RuntimeError, match="inference only"):
         dense_block_s2d(x.clone().requires_grad_(), ws[0::2], ws[1::2])
@@ -890,14 +865,6 @@ def test_inference_only_ops_refuse_a_gradient_on_the_card(cuda):
     residual = torch.zeros((1, 8, 8, 128), device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="inference only"):
         conv_i8(x8, w8, ep, residual=residual)
-    pairs = [[(torch.zeros(3, 3, 32 * k, 32, device=cuda), torch.zeros(32, device=cuda))
-              for k in range(1, 6)]] * 3
-    with pytest.raises(RuntimeError, match="inference only"):
-        rrdb_fused(torch.zeros((1, 8, 8, 32), device=cuda, requires_grad=True), pairs)
-    model = GeneratorRRDB_SR()
-    fast = make_fast_rrdb_forward(model, params_from_flax(PARAMS), torch.float32, cuda)
-    with pytest.raises(RuntimeError, match="inference only"):
-        fast(torch.zeros((1, 16, 16, 1), device=cuda, requires_grad=True))
 
 
 @pytest.mark.gpu

@@ -18,9 +18,9 @@ backward, and the model's gradients against `jax.grad`, on the CPU.
   this input: the port's f32 gradients 1.5e-4 x max|g| from its float64
   ones with Poisson alone, 1e-6 without it); `test_torch_loss.py` holds the
   Poisson term's gradient against JAX's.
-* The inference-only ops refuse a gradient: `dense_block_s2d`, `conv_i8`,
-  `rrdb_fused` and the fast forward raise `RuntimeError` (on every device;
-  the card tests repeat this on CUDA tensors).
+* The inference-only ops refuse a gradient: `dense_block_s2d` and
+  `conv_i8` raise `RuntimeError` (on every device; the card tests repeat
+  this on CUDA tensors).
 """
 
 import importlib
@@ -200,18 +200,3 @@ def test_inference_only_ops_refuse_a_gradient():
     with pytest.raises(RuntimeError, match="inference only"):
         tk3.conv_i8(x8, w8, ep, residual=residual)
     assert tk3.conv_i8(x8, w8, ep, residual=residual.detach()).shape == (1, 4, 4, 128)
-
-    xs = torch.zeros((1, 8, 8, 32)).requires_grad_()
-    pairs = [[(torch.zeros(3, 3, 32 * k, 32), torch.zeros(32)) for k in range(1, 6)]] * 3
-    with pytest.raises(RuntimeError, match="inference only"):
-        tdb.rrdb_fused(xs, pairs)
-    with torch.no_grad():
-        assert tdb.rrdb_fused(xs, pairs).shape == xs.shape
-
-    model = GeneratorRRDB_SR(num_filters=8, num_res_blocks=1)
-    fast = tdb.make_fast_rrdb_forward(model, model.state_dict(), torch.float32, "cpu")
-    xf = torch.rand((1, 16, 16, 1)).requires_grad_()
-    with pytest.raises(RuntimeError, match="inference only"):
-        fast(xf)
-    with torch.no_grad():
-        assert fast(xf).shape == (1, 32, 32, 1)

@@ -17,11 +17,17 @@
   the 40 (SR) or 36 (DN) gradients to 1e-5 x max|g| of each leaf against
   `jax.value_and_grad` of JAX's `make_s2d_train_apply`, and to the same
   bounds against the port's own model route.
+* The S2D route at esr_gen's full width (32 filters, 4 RRDBs, as the
+  shipped run configs train on it): `model(x, s2d=True)` against `model(x)`
+  in f32, 2 x 32^2, the trained checkpoint for SR and seeded torch-default
+  inits for DN, to 1e-5 on the [0, 1] output scale (f32 sums of up to
+  5,760 products taken in another order).
 * `memory_efficient` (each RRDB checkpointed) gives gradients bitwise equal
   to the plain model's.
 """
 
 import importlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -42,13 +48,16 @@ from xmm_superres_denoise_torch.ops.dense_block_s2d import (
 from xmm_superres_denoise_torch.ops.s2d_forward import make_s2d_train_apply
 from xmm_superres_denoise_torch.ops.space_to_depth import s2d_conv_weights_torch
 from xmm_superres_denoise_torch.train import loss as tl
+from xmm_superres_denoise_torch.utils.weights import params_from_flax
 
 jrrdb = importlib.import_module("xmm_superres_denoise_tpu.models.rrdb")
 js2d = importlib.import_module("xmm_superres_denoise_tpu.ops.s2d_forward")
 jl = importlib.import_module("xmm_superres_denoise_tpu.train.loss")
 jcfg = importlib.import_module("xmm_superres_denoise_tpu.config.schema")
 
+PARAMS = Path(__file__).resolve().parents[1] / "docs/convergence_esr_gen/best_params.npz"
 GRAD_RTOL, LOSS_RTOL = 1e-5, 1e-6
+FULL_WIDTH_ATOL = 1e-5  # on the [0, 1] output scale
 BF16_FACTOR = 1.5  # bf16 gradients: no worse than 1.5 x the plain bf16 autograd's error
 
 
@@ -153,6 +162,24 @@ def test_s2d_train_apply_refuses_what_jax_refuses():
         make_s2d_train_apply(GeneratorRRDB_SR(num_filters=4, num_res_blocks=1, num_upsample=2))
     with pytest.raises(TypeError, match="RRDB generators"):
         make_s2d_train_apply(torch.nn.Linear(2, 2))
+
+
+@pytest.mark.parametrize("sr", [True, False], ids=["sr", "dn"])
+def test_full_width_forwards_match_the_model(sr):
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (2, 32, 32, 1)).astype(np.float32))
+    model = GeneratorRRDB_SR() if sr else GeneratorRRDB_DN()
+    if sr:
+        model.load_state_dict(params_from_flax(PARAMS))
+    else:
+        model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        want = model(x)
+        got = model(x, s2d=True)
+    err = (got - want).abs().max().item()
+    print(f"S2D route {'SR' if sr else 'DN'} at full width vs the model route: {err:.3e} "
+          f"(tol {FULL_WIDTH_ATOL:.0e})")
+    assert got.shape == want.shape
+    assert err <= FULL_WIDTH_ATOL
 
 
 @pytest.mark.parametrize("cls", [GeneratorRRDB_SR, GeneratorRRDB_DN])

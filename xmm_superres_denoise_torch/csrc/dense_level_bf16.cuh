@@ -10,7 +10,7 @@
 // which is what the TPU kernels compute per level (one rounding per level).
 //
 // Kernel: C % 128 == 0 takes conv3x3_wgmma.cuh (wgmma fed by TMA, 16 x 16
-// pixels x 128 channels per block: K1's level and the fast forward's K2);
+// pixels x 128 channels per block: K1's level, and K2 at such a width);
 // any other C % 32 == 0 takes conv3x3_wgmma32.cuh (a persistent wgmma
 // m64n32k16 kernel fed by TMA over 16 x 16 pixel x 32 channel items, the
 // level's weights resident in shared memory at the model's C = 32).

@@ -19,8 +19,7 @@ output `0.2 * x5 + x`.
   plain version.
 * `pack_weights` casts and lays a block's weights out once (`PackedBlock`),
   for a caller that runs the block many times: the model's
-  `ResidualDenseBlock5C` keeps its pack, `make_fast_rrdb_forward` and the
-  S2D forwards pack when they are built. Ten raw tensors are packed on
+  `ResidualDenseBlock5C` keeps its pack. Ten raw tensors are packed on
   every call.
 * `dense_block_reference` is the plain version of the same function
   (`F.conv2d` + cat + LeakyReLU), used on the CPU and as the kernel's
@@ -30,12 +29,9 @@ output `0.2 * x5 + x`.
   `check_packed` the check of a packed block, both shared with K1
   (`ops/dense_block_s2d.py`, whose f32 levels are this kernel's and whose
   bf16 levels are the same tensor-core level).
-* Drivers, the counterparts of `ops/pallas_rrdb.py:194-324`: `rrdb_fused`
-  (JAX `rrdb_pallas`), `rrdb_params_from_flax` and `make_fast_rrdb_forward`,
-  which runs the trunk on this kernel in the space-to-depth domain;
-  `rrdb_chain` is the RRDB loop they share with `ops/s2d_forward.py`.
-  `rrdb_fused` and the fast forward serve inference only and raise
-  (`refuse_grad`) when a gradient is asked of them.
+* `grad_needed` and `refuse_grad` are the autograd guards the port's
+  kernels share: whether a call must go through autograd, and the refusal
+  of an inference-only route asked for a gradient.
 
 What bounds the block and what the kernel's design does about it are in the
 note at the top of `csrc/dense_block.cu`. The library is built at first use
@@ -48,7 +44,6 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -342,109 +337,3 @@ def launch_levels(x: Tensor, weights, biases, lib, lib_name: str, level, counter
 
 
 dense_block.launches = 0
-
-
-# --------------------------------------------------------------------------
-# Drivers: the RRDB on K2, and the fast forward with the trunk in the S2D
-# domain
-# --------------------------------------------------------------------------
-
-
-def rrdb_chain(x: Tensor, rrdbs, block) -> Tensor:
-    """RRDBs in sequence: each runs `block(t, params)` over the params of
-    its three dense blocks, then out * 0.2 + its input (the scalar in
-    `x.dtype`, as JAX rounds it)."""
-    from .precision import scalar_like
-
-    t = x
-    for rrdb in rrdbs:
-        block_in = t
-        for params in rrdb:
-            t = block(t, params)
-        t = t * scalar_like(t, 0.2) + block_in
-    return t
-
-
-def rrdb_fused(x: Tensor, block_params) -> Tensor:
-    """One RRDB through three `dense_block` calls: out * 0.2 + x.
-
-    block_params: three dense blocks, each five (w, b) pairs (HWIO).
-    Inference only: raises when a gradient is asked of it."""
-    refuse_grad("rrdb_fused", x, *[a for rdb in block_params for pair in rdb for a in pair])
-    return rrdb_chain(
-        x, [block_params],
-        lambda t, pairs: dense_block(t.contiguous(), *[a for pair in pairs for a in pair]),
-    )
-
-
-def rrdb_params_from_flax(params, n_blocks: int):
-    """[[(w, b) x 5] x 3] per RRDB, as f32 CPU tensors (HWIO), from the Flax
-    tree of a generator (any source `utils.weights.flax_tree` takes)."""
-    from ..utils.weights import flax_tree
-
-    trunk = flax_tree(params)["trunk"]
-    out = []
-    for i in range(n_blocks):
-        rrdb = trunk[f"rrdb_{i}"]
-        out.append([
-            [
-                (torch.from_numpy(rrdb[f"RDB{k}"][f"conv{j}"]["kernel"]),
-                 torch.from_numpy(rrdb[f"RDB{k}"][f"conv{j}"]["bias"]))
-                for j in range(1, 6)
-            ]
-            for k in (1, 2, 3)
-        ])
-    return out
-
-
-def make_fast_rrdb_forward(model, params, dtype=torch.bfloat16, device="cuda:0"):
-    """A forward for `GeneratorRRDB_SR`/`_DN` with the trunk's dense blocks
-    on K2 in the 2x2 space-to-depth domain (C = 4 * num_filters = 128 at
-    esr_gen width), equal to clip(model(x), 0, 1) up to dtype.
-
-    `params` is the Flax-layout tree (any source `utils.weights.flax_tree`
-    takes, a state_dict included); the S2D weights are transformed in f32
-    numpy and only then cast to `dtype` (`s2d_forward._transform_trunk`),
-    and each dense block is packed once, here. conv_first, trunk_conv and
-    the head stay cuDNN convolutions at full resolution. f32 runs with TF32
-    off. Inference only: the forward raises when a gradient is asked of it
-    (`refuse_grad`). The JAX version's `tile` and `interpret` arguments choose the TPU
-    kernel's tiling and its interpreter and have no counterpart here."""
-    from ..models.rrdb import GeneratorRRDB_SR, conv3x3_nhwc, pixel_shuffle
-    from ..utils.weights import flax_tree
-    from .precision import lrelu
-    from .s2d_forward import _maybe_true_f32, _transform_trunk
-    from .space_to_depth import d2s, s2d
-
-    p = flax_tree(params)
-    trunk = p["trunk"]
-    blocks = [
-        [pack_weights([w for w, _ in rdb], [b for _, b in rdb], dtype) for rdb in rrdb]
-        for rrdb in _transform_trunk(trunk, model.trunk.num_res_blocks, dtype, device)["blocks"]
-    ]
-
-    def conv_w(node):  # HWIO -> OIHW, once
-        w = np.ascontiguousarray(node["kernel"].transpose(3, 2, 0, 1))
-        return torch.from_numpy(w).to(device, dtype), torch.from_numpy(node["bias"]).to(device, dtype)
-
-    first, tconv, last = conv_w(trunk["conv_first"]), conv_w(trunk["trunk_conv"]), conv_w(p["conv_last"])
-    is_sr = isinstance(model, GeneratorRRDB_SR)
-    if is_sr:
-        ups = [conv_w(p[f"upconv_{i}"]) for i in range(model.num_upsample)]
-        hr = conv_w(p["HRconv"])
-
-    def forward(x: Tensor) -> Tensor:
-        refuse_grad("make_fast_rrdb_forward's forward", x)
-        x = x.to(dtype)
-        fea = conv3x3_nhwc(x, *first)
-        t = rrdb_chain(s2d(fea).contiguous(), blocks, dense_block)
-        fea = fea + conv3x3_nhwc(d2s(t), *tconv)
-        if is_sr:
-            for up in ups:
-                fea = pixel_shuffle(lrelu(conv3x3_nhwc(fea, *up), 0.01), 2)
-            out = conv3x3_nhwc(lrelu(conv3x3_nhwc(fea, *hr), 0.2), *last)
-        else:
-            out = conv3x3_nhwc(fea, *last) + x
-        return torch.clamp(out, 0.0, 1.0)
-
-    return _maybe_true_f32(forward, dtype)

@@ -1,7 +1,8 @@
 """int8 (w8a8) space-to-depth serving for the RRDB generators.
 
 The port of the JAX package's `ops/int8_forward.py`: a statically
-calibrated w8a8 variant of `ops/s2d_forward.py`.
+calibrated w8a8 forward in the S2D domain, on the weight transform of
+`ops/s2d_forward.py`.
 
 * weights: symmetric per-output-channel int8;
 * activations: symmetric per-tensor int8, with scales baked from a

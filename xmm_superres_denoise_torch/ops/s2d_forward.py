@@ -1,22 +1,14 @@
-"""Whole-forward space-to-depth pipelines for the RRDB generators.
+"""The RRDB generators' space-to-depth weight transform, and their S2D
+training route.
 
-The port of the JAX package's `ops/s2d_forward.py`. The whole
-GeneratorRRDB_SR / _DN forward runs in the 2x2 space-to-depth domain
+The port of the parts of the JAX package's `ops/s2d_forward.py` that the
+port runs. `_xform` and `_transform_trunk` move Flax-layout weights (any
+source `utils.weights.flax_tree` takes) into the 2x2 space-to-depth domain
 (`ops/space_to_depth.py`): every 3x3 convolution becomes the exactly
 equivalent 3x3 convolution at half resolution with 4x the channels, 128 at
-esr_gen width. The trunk's 12 dense blocks run on K1
-(`ops/dense_block_s2d.py`: the CUDA kernel on the card, its plain version on
-the CPU); the five outer convolutions are cuDNN `F.conv2d`, as the JAX
-package leaves them to XLA. f32 runs with TF32 off (`true_f32`).
-
-The SR head: the upconv output in the S2D domain is the S2D^2 form of the
-pixel-shuffled 832^2 tensor, so one `d2s` moves it to the S2D^1 domain
-(416^2, 128 channels) where HRconv and conv_last run (4x their nominal
-FLOPs rather than 16x at S2D^2), and a last `d2s` gives the 832^2 output.
-
-`params` is the Flax-layout tree (any source `utils.weights.flax_tree`
-takes); weights are transformed in f32 numpy and only then cast to the
-forward's dtype.
+esr_gen width. Weights are transformed in f32 numpy and only then cast.
+int8 serving (`ops/int8_forward.py`) builds on them, with `_conv_ready` and
+`_maybe_true_f32` (f32 runs with TF32 off, `true_f32`).
 
 `make_s2d_train_apply` is the training route (`model.s2d_train`): the
 model's own forward with its RRDB chain in the S2D domain, each dense block
@@ -31,12 +23,9 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR, conv3x3_nhwc
-from ..utils.weights import flax_tree
-from .dense_block import pack_weights, rrdb_chain
-from .dense_block_s2d import dense_block_s2d
-from .precision import lrelu, true_f32
-from .space_to_depth import d2s, s2d, s2d_conv_weights
+from ..models.rrdb import GeneratorRRDB_DN, GeneratorRRDB_SR
+from .precision import true_f32
+from .space_to_depth import s2d_conv_weights
 
 Tensor = torch.Tensor
 
@@ -74,32 +63,6 @@ def _conv_ready(pair: Tuple[Tensor, Tensor]) -> Tuple[Tensor, Tensor]:
     return w.permute(3, 2, 0, 1).contiguous(), b
 
 
-def _prepare_trunk(tp: Dict[str, Any]) -> Dict[str, Any]:
-    """Lay the transformed trunk out once for the forward: outer convs as
-    OIHW, each dense block packed for K1."""
-    return {
-        "conv_first": _conv_ready(tp["conv_first"]),
-        "trunk_conv": _conv_ready(tp["trunk_conv"]),
-        "blocks": [
-            [pack_weights([w for w, _ in rdb], [b for _, b in rdb], rdb[0][0].dtype)
-             for rdb in rrdb]
-            for rrdb in tp["blocks"]
-        ],
-    }
-
-
-def _trunk_forward(tp: Dict[str, Any], x4: Tensor) -> Tensor:
-    """S2D-domain trunk: conv_first -> N x RRDB (dense blocks on K1) ->
-    trunk_conv + skip. `tp` comes from `_prepare_trunk`."""
-    fea = conv3x3_nhwc(x4, *tp["conv_first"])
-    _, h, w, _ = x4.shape
-    # K1's tiling arguments only restrict shapes; one tile of the whole
-    # image takes any H and W
-    t = rrdb_chain(fea.contiguous(), tp["blocks"],
-                   lambda t, packed: dense_block_s2d(t, packed, h_strip=h, w_tile=w))
-    return fea + conv3x3_nhwc(t, *tp["trunk_conv"])
-
-
 def _maybe_true_f32(forward, dtype):
     """f32 is the parity class: run it with TF32 off."""
     if dtype != torch.float32:
@@ -110,44 +73,6 @@ def _maybe_true_f32(forward, dtype):
             return forward(x)
 
     return forward_f32
-
-
-def make_s2d_sr_forward(model: GeneratorRRDB_SR, params, dtype=torch.bfloat16, device="cuda:0"):
-    """An S2D-domain forward equal to clip(model(x), 0, 1) (up to dtype), for
-    num_upsample == 1. Input (B, H, W, C) NHWC with H, W divisible by 2;
-    output (B, 2H, 2W, out_channels) in `dtype`."""
-    if model.num_upsample != 1:
-        raise ValueError(f"the S2D forward is built for num_upsample == 1, got {model.num_upsample}")
-    p = flax_tree(params)
-    tp = _prepare_trunk(_transform_trunk(p["trunk"], model.trunk.num_res_blocks, dtype, device))
-    upconv = _conv_ready(_xform(p["upconv_0"], 1, dtype, device))
-    hrconv = _conv_ready(_xform(p["HRconv"], 1, dtype, device))
-    conv_last = _conv_ready(_xform(p["conv_last"], 1, dtype, device))
-
-    def forward(x: Tensor) -> Tensor:
-        x4 = s2d(x.to(dtype))
-        fea = _trunk_forward(tp, x4)
-        up = lrelu(conv3x3_nhwc(fea, *upconv), 0.01)  # == S2D^2 of the shuffled tensor
-        h = lrelu(conv3x3_nhwc(d2s(up), *hrconv), 0.2)  # S2D^1: 2H x 2W / 2, 4 * nf
-        out = conv3x3_nhwc(h, *conv_last)
-        return torch.clamp(d2s(out), 0.0, 1.0)
-
-    return _maybe_true_f32(forward, dtype)
-
-
-def make_s2d_dn_forward(model: GeneratorRRDB_DN, params, dtype=torch.bfloat16, device="cuda:0"):
-    """S2D-domain denoiser forward: trunk -> conv_last -> input skip -> clip."""
-    p = flax_tree(params)
-    tp = _prepare_trunk(_transform_trunk(p["trunk"], model.trunk.num_res_blocks, dtype, device))
-    conv_last = _conv_ready(_xform(p["conv_last"], 1, dtype, device))
-
-    def forward(x: Tensor) -> Tensor:
-        x4 = s2d(x.to(dtype))
-        fea = _trunk_forward(tp, x4)
-        out = conv3x3_nhwc(fea, *conv_last) + x4
-        return torch.clamp(d2s(out), 0.0, 1.0)
-
-    return _maybe_true_f32(forward, dtype)
 
 
 def make_s2d_train_apply(model, remat: bool = False):
