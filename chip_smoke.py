@@ -6,9 +6,9 @@
 Phases, each printing its result and its seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and what PyTorch sees;
-2. build: the five kernel libraries compiled with nvcc for sm_90a, all at
+2. build: the six kernel libraries compiled with nvcc for sm_90a, all at
    once (ptxas reports): K2 dense_block, K1 dense_block_s2d, P int8_gemm,
-   K3 conv_i8, window_attention;
+   K3 conv_i8, window_attention, mlp_block;
 3. kernel: each kernel held against its plain PyTorch version at the shapes
    the main paths give it, and timed with CUDA events beside the plain
    version, a library call where one computes the same function, and its
@@ -39,7 +39,12 @@ Phases, each printing its result and its seconds:
    2^-7 (sum_j P_j |v_j| + |o|) + 1e-6 of its plain composition per element
    (P the plain f32 probabilities: the f32 sums' order, one bf16 ulp of P
    and of the output), timed beside the plain version and
-   `F.scaled_dot_product_attention` with a float mask, with its bound;
+   `F.scaled_dot_product_attention` with a float mask, with its bound; the
+   fused MLP half-block (LayerNorm, fc1, GELU, fc2, residual) at the cells'
+   (4, 173056, 180), H 720, finite and within 2^-7 (|plain| + |y| + |y -
+   b2|) + 2^-10 max|y| of its plain composition per element (y = plain -
+   x: one bf16 ulp at the output's, the bias add's and fc2's roundings),
+   timed beside the plain version with its bound by operations and bytes;
 4. serve: 4 synthetic Poisson detxy FITS (403x411, so padding is exercised)
    served by `serve_files` through `InferenceEngine` at full esr_gen width and
    depth (416^2 -> 832^2) with the trained weights, in f32 and in bf16. The
@@ -157,9 +162,10 @@ Phases, each printing its result and its seconds:
    checkpoint, bitwise equal to the fit's test. The window attention
    counter is read around the f32 and the bf16 forward at 416^2: none in
    f32, and in bf16 one launch per attention (SwinIR and SwinFIR 36, DRCT
-   30, HAT 42, Restormer 0); the `kernels` line's window_attention entries
-   carry the count measured there. LayerNorm, FFT and convolutions are
-   PyTorch's ops.
+   30, HAT 42, Restormer 0), and so is the MLP half-block's (SwinIR and
+   SwinFIR 36, DRCT 6, HAT 42, Restormer 0); the `kernels` line's
+   window_attention and mlp_block entries carry the counts measured there.
+   `norm1`, FFT and convolutions are PyTorch's ops.
 
 The `kernels` line's K2 f32 and bf16, P and K3 entries also carry
 `launches_end2end`, their launches in one `cli end2end` batch. K1's entries
@@ -1160,6 +1166,89 @@ def phase_kernel_window_attention(build_logs: dict) -> list:
         del q, k, v, bias, mask
         torch.cuda.empty_cache()
     return entries
+
+
+# the zoo cells' MLP half-block at their serving batch of 4 images of 416^2
+# tokens: C 180, H 720 (SwinIR, SwinFIR, HAT's HABs and OCABs, DRCT's first
+# block of each group)
+MLP_SHAPE = (4, 416 * 416, 180, 720)
+MLP_IMAGES = 4
+
+
+def _mlp_case(dev, seed=0):
+    """Seeded bf16 tokens and a LayerNorm and Mlp of the cells' widths, with
+    parameters of the size a trained block holds (weights N(0, 1 / fan_in),
+    nonzero biases, LayerNorm's scale around 1)."""
+    from xmm_superres_denoise_torch.models.swin_common import LayerNorm, Mlp
+
+    b, t, c, h = MLP_SHAPE
+    g = torch.Generator().manual_seed(seed)
+    norm, mlp = LayerNorm(c), Mlp(c, h, c)
+    with torch.no_grad():
+        norm.scale.copy_(1 + 0.2 * torch.randn(c, generator=g))
+        norm.bias.copy_(0.2 * torch.randn(c, generator=g))
+        mlp.fc1.weight.copy_(torch.randn(h, c, generator=g) / c ** 0.5)
+        mlp.fc1.bias.copy_(0.5 * torch.randn(h, generator=g))
+        mlp.fc2.weight.copy_(torch.randn(c, h, generator=g) / h ** 0.5)
+        mlp.fc2.bias.copy_(0.5 * torch.randn(c, generator=g))
+    gd = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((b, t, c), generator=gd, device=dev) + torch.randn((c,), generator=gd, device=dev)
+    return x.bfloat16(), norm.to(dev, torch.bfloat16).eval(), mlp.to(dev, torch.bfloat16).eval()
+
+
+def phase_kernel_mlp_block(build_logs: dict) -> dict:
+    """The fused MLP half-block at the zoo cells' shape: the kernel against
+    its plain composition (finite, and per element within 2^-7 (|plain| +
+    |y| + |y - b2|) + 2^-10 max|y|, y = plain - x: one bf16 ulp at each of
+    the output's, the bias add's and fc2's roundings, and the sums' order
+    beyond, else AssertionError), CUDA-event times of the kernel and the
+    plain version, the kernel's device time (torch.profiler) and its bound
+    by operations and bytes."""
+    from xmm_superres_denoise_torch.ops.mlp_block import mlp_block, mlp_block_plain
+
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    x, norm, mlp = _mlp_case(dev)
+    b, t, c, h = MLP_SHAPE
+    with torch.inference_mode():
+        got = mlp_block(x, norm, mlp)
+        plain = mlp_block_plain(x, norm, mlp)
+        y = plain.float() - x.float()
+        b2 = mlp.fc2.bias.float()
+        diff = (got.float() - plain.float()).abs()
+        bound = 2.0**-7 * (plain.float().abs() + y.abs() + (y - b2).abs()) + 2.0**-10 * y.abs().max()
+        err = float(diff.max())
+        over = float((diff / bound).max())
+        finite = bool(torch.isfinite(got.float()).all())
+        same = float((got == plain).float().mean())
+        del got, plain, y, diff, bound
+        ms = _time_ms(lambda: mlp_block(x, norm, mlp))
+        dev_ms = _device_ms(lambda: mlp_block(x, norm, mlp), iters=5)
+        plain_ms = _time_ms(lambda: mlp_block_plain(x, norm, mlp), iters=5)
+    tokens = b * t
+    flops = 4 * tokens * c * h  # fc1 and fc2
+    nbytes = 2 * tokens * c * 2 + 2 * (2 * c * h + h + 3 * c)  # x in, out out, the parameters
+    bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
+    per_image = 1 / MLP_IMAGES
+    say(f"[kernel] mlp_block ({b}, {t}, {c}) H={h}: max|diff| vs plain {err:.3e}, {over:.3f} of "
+        f"the bound at most ({same:.2%} bitwise equal, finite {finite}); CUDA events: kernel "
+        f"{ms:.4f} ms (device only {dev_ms:.4f}), plain {plain_ms:.4f} ms; bound {bound_ms:.4f} "
+        f"ms by {bound_by} ({flops / 1e9:.1f} GFLOP: {flops / 989e12 * 1e3:.4f} ms; "
+        f"{nbytes / 1e9:.3f} GB: {nbytes / 3.35e12 * 1e3:.4f} ms), {100 * bound_ms / ms:.1f} % "
+        f"of it; per block an image: kernel {ms * per_image:.3f} ms, plain "
+        f"{plain_ms * per_image:.3f}; ptxas: "
+        f"{_ptxas_report(build_logs['mlp_block'], 'mlp_block_sm90_kernel')} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not finite or not over <= 1.0:
+        raise AssertionError(f"mlp_block disagrees with its plain version: max|diff| {err}, "
+                             f"{over} of the bound, finite {finite}")
+    del x, norm, mlp
+    torch.cuda.empty_cache()
+    return {"name": "mlp_block (4, 173056, 180) H=720", "route": "cuda",
+            "source": "xmm_superres_denoise_torch/csrc/mlp_block.cu", "replaces": None,
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launches_per_forward": None}  # per zoo run, from its bf16 forward
 
 
 def _k3_forward_ops(b: int, h: int, w: int, blocks: int, group: int) -> int:
@@ -2763,6 +2852,11 @@ ZOO_FIT_BASE_NAMES = 20  # 16 train names: 8 steps at swinir_sr's batch of 2
 # SwinFIR 6 x 6 Swin blocks, DRCT 6 x 5 dense blocks, HAT 36 HABs and 6 OCABs)
 ZOO_WA_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 30, "hat_sr": 42,
                    "restormer_denoise": 0}
+# mlp_block launches in one bf16 forward: one per MLP half-block at C <= 192
+# and H <= 768 (SwinIR's and SwinFIR's 36 Swin blocks, DRCT's 6 first dense
+# blocks, HAT's 36 HABs and 6 OCABs; DRCT's wider blocks and Restormer none)
+ZOO_MLP_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 6, "hat_sr": 42,
+                    "restormer_denoise": 0}
 ZOO_GROUPS = ("GEMM (cuBLAS)", "convolution (cuDNN)", "softmax", "LayerNorm", "FFT",
               "elementwise, copies and the rest")
 
@@ -2852,11 +2946,13 @@ def phase_zoo(tmp: Path) -> dict:
     to the CPU's f32 forward of the same weights at a small size, bf16 held
     to f32 at 416^2 in dB, engine ms per image (CUDA events), peak memory
     and a traced bf16 and f32 forward; then `cli fit` / `test` of swinir_sr.
-    Returns each run's window_attention launches in its bf16 forward."""
+    Returns each run's window_attention and mlp_block launches in its bf16
+    forward."""
     from xmm_superres_denoise_torch.cli import load_run_config
     from xmm_superres_denoise_torch.infer.run_file import InferenceEngine, load_rate_image
     from xmm_superres_denoise_torch.models.registry import build_model
     from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.ops.mlp_block import mlp_block
     from xmm_superres_denoise_torch.ops.window_attention import window_attention
     from xmm_superres_denoise_torch.utils.weights import (
         load_params_npz,
@@ -2867,7 +2963,7 @@ def phase_zoo(tmp: Path) -> dict:
     t_all = time.perf_counter()
     files = _write_inputs(tmp)
     raw = np.stack([load_rate_image(f)[0] for f in files])
-    wa_launches = {}
+    wa_launches, mlp_launches = {}, {}
     for i, run in enumerate(ZOO_RUNS):
         t0 = time.perf_counter()
         path = ROOT / "res/configs/runs" / f"{run}.toml"
@@ -2900,14 +2996,14 @@ def phase_zoo(tmp: Path) -> dict:
                    "bf16": InferenceEngine(mc, ds, state, dtype=torch.bfloat16)}
         x = engines["f32"].prepare(torch.from_numpy(raw[:SERVE_BATCH]).to("cuda:0"))
         with torch.inference_mode():
-            window_attention.launches = 0
+            window_attention.launches = mlp_block.launches = 0
             with true_f32():
                 y32 = engines["f32"].model(x).float()
-            wa_f32 = window_attention.launches
-            window_attention.launches = 0
+            wa_f32, mlp_f32 = window_attention.launches, mlp_block.launches
+            window_attention.launches = mlp_block.launches = 0
             y16 = engines["bf16"].model(x.bfloat16()).float()
             torch.cuda.synchronize()
-            wa_launches[run] = window_attention.launches
+            wa_launches[run], mlp_launches[run] = window_attention.launches, mlp_block.launches
         rms = float(torch.sqrt(torch.mean((y16 - y32) ** 2)))
         db = 20 * math.log10(float(y32.abs().max()) / max(rms, 1e-30))
 
@@ -2943,7 +3039,8 @@ def phase_zoo(tmp: Path) -> dict:
             f"f32 vs CPU f32 at {px}^2: max|diff| {err:.3e} (tol {tol:.1e}; CPU {cpu_s:.1f} s); "
             f"bf16 vs f32 at {lr[0]}^2: {db:.2f} dB (min {ZOO_BF16_DB}); window_attention "
             f"launches in one forward of {SERVE_BATCH}: f32 {wa_f32}, bf16 {wa_launches[run]} "
-            f"(expected 0 and {ZOO_WA_LAUNCHES[run]}) "
+            f"(expected 0 and {ZOO_WA_LAUNCHES[run]}); mlp_block launches: f32 {mlp_f32}, bf16 "
+            f"{mlp_launches[run]} (expected 0 and {ZOO_MLP_LAUNCHES[run]}) "
             f"({time.perf_counter() - t0:.1f} s)")
         for mode in ("f32", "bf16"):
             say(f"[zoo]   {run} {mode} trace: {traces[mode]}")
@@ -2953,11 +3050,14 @@ def phase_zoo(tmp: Path) -> dict:
         if wa_f32 != 0 or wa_launches[run] != ZOO_WA_LAUNCHES[run]:
             raise AssertionError(f"[zoo] {run}: window_attention launches f32 {wa_f32}, bf16 "
                                  f"{wa_launches[run]}, expected 0 and {ZOO_WA_LAUNCHES[run]}")
+        if mlp_f32 != 0 or mlp_launches[run] != ZOO_MLP_LAUNCHES[run]:
+            raise AssertionError(f"[zoo] {run}: mlp_block launches f32 {mlp_f32}, bf16 "
+                                 f"{mlp_launches[run]}, expected 0 and {ZOO_MLP_LAUNCHES[run]}")
         del engines, model, cpu_model, x, y32, y16
         torch.cuda.empty_cache()
     _zoo_fit(tmp)
     say(f"[zoo] ({time.perf_counter() - t_all:.2f} s)")
-    return wa_launches
+    return wa_launches, mlp_launches
 
 
 def _zoo_fit(tmp: Path) -> None:
@@ -3031,6 +3131,7 @@ def main() -> int:
         p_entry, (k3_entry, k3_fused, k3_taps) = (phase_kernel_p(build_logs),
                                                   phase_kernel_k3(build_logs))
         wa_entries = phase_kernel_window_attention(build_logs)
+        mlp_entry = phase_kernel_mlp_block(build_logs)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
             int8_launches = phase_serve_int8(ctx, Path(tmp))
@@ -3045,7 +3146,7 @@ def main() -> int:
         phase_train_routes()
         phase_profile(ctx)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_zoo_") as tmp:
-            zoo_wa = phase_zoo(Path(tmp))
+            zoo_wa, zoo_mlp = phase_zoo(Path(tmp))
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
             entry["launches_end2end"] = e2e_launches[name]["K2"]
@@ -3056,11 +3157,12 @@ def main() -> int:
         k3_taps["launches"] = int8_launches["conv_i8 wgmma_taps"]
         for entry in wa_entries:
             entry["launches_per_forward"] = zoo_wa[entry["run"]]
+        mlp_entry["launches_per_forward"] = zoo_mlp
         p_entry["launches_end2end"] = e2e_launches["int8 calibrate"]["P"]
         k3_entry["launches_end2end"] = k3_fused["launches_end2end"] = (
             e2e_launches["int8 calibrate"]["K3"])
         kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused, k3_taps,
-                    *wa_entries]
+                    *wa_entries, mlp_entry]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

@@ -53,6 +53,7 @@ from .swin_common import (
     effective_window,
     index_buffer,
     linear,
+    mlp_residual,
     reset_zoo_parameters,
     shift_mask,
     to_image,
@@ -155,8 +156,7 @@ class HAB(nn.Module):
             attn = torch.roll(attn, (shift, shift), dims=(1, 2))
         x = (shortcut + drop_path(attn.reshape(b, l, c), self.drop_path_rate, generator)
              + conv_x * scalar_like(conv_x, self.conv_scale))
-        y = self.mlp(self.norm2(x))
-        return x + drop_path(y, self.drop_path_rate, generator)
+        return mlp_residual(x, self.norm2, self.mlp, self.drop_path_rate, generator)
 
 
 def unfold_overlap_windows(x: Tensor, ws: int, owin: int) -> Tensor:
@@ -218,7 +218,7 @@ class OCAB(nn.Module):
         out = out.transpose(1, 2).reshape(b_, nq, c)
         out = window_reverse(out.reshape(-1, ws, ws, c), ws, h, w).reshape(b, l, c)
         x = linear(self.proj, out) + shortcut
-        return x + self.mlp(self.norm2(x))
+        return mlp_residual(x, self.norm2, self.mlp, 0.0, None)
 
 
 class RHAG(nn.Module):

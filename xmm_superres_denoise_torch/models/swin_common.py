@@ -25,7 +25,10 @@ The port of the JAX package's `models/swin_common.py`:
   differs); the bias and mask are added in f32, the softmax runs in f32 and
   its normalised result is cast back for `attn @ v`; LayerNorm takes its statistics and its affine step in f32 and rounds
   once (Flax's `LayerNorm` promotes to f32); a Python-float scalar meets a
-  bf16 tensor rounded to bf16 first (`ops/precision.py: scalar_like`).
+  bf16 tensor rounded to bf16 first (`ops/precision.py: scalar_like`). The
+  blocks' MLP half, `x + mlp(norm2(x))`, runs in bf16 serving as one
+  hand-written kernel with the same roundings (`mlp_residual`,
+  `ops/mlp_block.py`).
 * Initializers: timm's trunc_normal(std 0.02, cut at +-2 absolute) for
   Linear weights and bias tables with zero Linear biases, torch's Conv2d
   default (U(+-1/sqrt(fan_in))) for convolutions, ones and zeros for norms
@@ -50,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.mlp_block import mlp_block
 from ..ops.window_attention import window_attention
 from .rrdb import _checkpointed, pixel_shuffle
 
@@ -227,6 +231,18 @@ def drop_path(x: Tensor, rate: float, generator: Optional[torch.Generator]) -> T
     return x / keep * torch.floor(keep + u)
 
 
+def mlp_residual(x: Tensor, norm: nn.Module, mlp: nn.Module, drop_path_rate: float,
+                 generator: Optional[torch.Generator]) -> Tensor:
+    """The blocks' MLP half, `x + drop_path(mlp(norm(x)))`: with a drop-path
+    draw (a generator and a nonzero rate) as those ops; without one (serving,
+    evaluation, the trainer's deterministic forward) `ops/mlp_block.py:
+    mlp_block`, the hand-written kernel in bf16 serving and the same ops on
+    the CPU, in f32, under autograd and for blocks wider than the kernel."""
+    if generator is not None and drop_path_rate != 0.0:
+        return x + drop_path(mlp(norm(x)), drop_path_rate, generator)
+    return mlp_block(x, norm, mlp)
+
+
 def checkpoint_block(block: nn.Module, use_checkpoint: bool, x: Tensor, *args,
                      generator=None) -> Tensor:
     """`block(x, *args, generator)`, its activations recomputed in the
@@ -323,8 +339,7 @@ class SwinTransformerBlock(nn.Module):
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = shortcut + drop_path(x.reshape(b, l, c), self.drop_path_rate, generator)
-        y = self.mlp(self.norm2(x))
-        return x + drop_path(y, self.drop_path_rate, generator)
+        return mlp_residual(x, self.norm2, self.mlp, self.drop_path_rate, generator)
 
 
 class BasicLayer(nn.Module):

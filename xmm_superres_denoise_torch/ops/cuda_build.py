@@ -32,7 +32,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 300
-LIBRARIES = ("dense_block", "dense_block_s2d", "int8_gemm", "conv_i8", "window_attention")
+LIBRARIES = ("dense_block", "dense_block_s2d", "int8_gemm", "conv_i8", "window_attention",
+             "mlp_block")
 
 P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
