@@ -13,6 +13,11 @@ The port of the JAX package's `models/restormer.py`:
 * A 4-level U-Net with pixel-(un)shuffle resizing (torch channel order,
   `models/rrdb.py`), skip concats, channel reducers, refinement and a
   global input residual.
+
+Tracing: each MDTA and GDFN forward is a span (`zoo.mdta`, `zoo.gdfn`;
+`utils/profiling.py: annotate`) and counts itself in a class attribute,
+process-wide as `models/hat.py: HAB.calls`: `MDTA.calls`, `GDFN.calls`,
+one each per `RestormerBlock` forward.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.precision import scalar_like
+from ..utils.profiling import annotate
 from .rrdb import pixel_shuffle, pixel_unshuffle
 from .swin_common import conv, conv2d_torch, reset_zoo_parameters
 
@@ -57,6 +63,8 @@ def depthwise_conv3x3(features: int, use_bias: bool) -> nn.Conv2d:
 class MDTA(nn.Module):
     """Multi-DConv-head transposed attention."""
 
+    calls = 0  # forwards (module docstring)
+
     def __init__(self, dim: int, num_heads: int, use_bias: bool = False):
         super().__init__()
         self.num_heads = num_heads
@@ -66,6 +74,11 @@ class MDTA(nn.Module):
         self.project_out = conv2d_torch(dim, dim, 1, use_bias)
 
     def forward(self, x: Tensor) -> Tensor:
+        MDTA.calls += 1
+        with annotate("zoo.mdta"):
+            return self._forward(x)
+
+    def _forward(self, x: Tensor) -> Tensor:
         b, h, w, c = x.shape
         nh = self.num_heads
         d = c // nh
@@ -89,6 +102,8 @@ class MDTA(nn.Module):
 class GDFN(nn.Module):
     """Gated-DConv feed-forward."""
 
+    calls = 0  # forwards (module docstring)
+
     def __init__(self, dim: int, expansion: float = 2.66, use_bias: bool = False):
         super().__init__()
         hidden = int(dim * expansion)
@@ -97,8 +112,10 @@ class GDFN(nn.Module):
         self.project_out = conv2d_torch(dim, hidden, 1, use_bias)
 
     def forward(self, x: Tensor) -> Tensor:
-        x1, x2 = conv(self.dwconv, conv(self.project_in, x)).chunk(2, dim=-1)
-        return conv(self.project_out, F.gelu(x1) * x2)
+        GDFN.calls += 1
+        with annotate("zoo.gdfn"):
+            x1, x2 = conv(self.dwconv, conv(self.project_in, x)).chunk(2, dim=-1)
+            return conv(self.project_out, F.gelu(x1) * x2)
 
 
 class RestormerBlock(nn.Module):
