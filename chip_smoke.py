@@ -6,9 +6,9 @@
 Phases, each printing its result and its seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and what PyTorch sees;
-2. build: the six kernel libraries compiled with nvcc for sm_90a, all at
+2. build: the seven kernel libraries compiled with nvcc for sm_90a, all at
    once (ptxas reports): K2 dense_block, K1 dense_block_s2d, P int8_gemm,
-   K3 conv_i8, window_attention, mlp_block;
+   K3 conv_i8, window_attention, mlp_block, mdta_gram;
 3. kernel: each kernel held against its plain PyTorch version at the shapes
    the main paths give it, and timed with CUDA events beside the plain
    version, a library call where one computes the same function, and its
@@ -45,6 +45,12 @@ Phases, each printing its result and its seconds:
    b2|) + 2^-10 max|y| of its plain composition per element (y = plain -
    x: one bf16 ulp at the output's, the bias add's and fc2's roundings),
    timed beside the plain version with its bound by operations and bytes;
+   MDTA's Gram side (`mdta_gram`: the Gram and sums of squares over the
+   pixels on wgmma, then the softmax) at Restormer's five level shapes at
+   batch 4 and dim 48, finite and within the plain bf16 composition's error
+   plus one bf16 ulp of an f64 evaluation per element, timed beside the
+   plain version with its byte bound, and summed over the 44 calls of a
+   forward;
 4. serve: 4 synthetic Poisson detxy FITS (403x411, so padding is exercised)
    served by `serve_files` through `InferenceEngine` at full esr_gen width and
    depth (416^2 -> 832^2) with the trained weights, in f32 and in bf16. The
@@ -163,8 +169,9 @@ Phases, each printing its result and its seconds:
    counter is read around the f32 and the bf16 forward at 416^2: none in
    f32, and in bf16 one launch per attention (SwinIR and SwinFIR 36, DRCT
    30, HAT 42, Restormer 0), and so is the MLP half-block's (SwinIR and
-   SwinFIR 36, DRCT 6, HAT 42, Restormer 0); the `kernels` line's
-   window_attention and mlp_block entries carry the counts measured there.
+   SwinFIR 36, DRCT 6, HAT 42, Restormer 0), and so is MDTA's Gram side's
+   (Restormer 44, the others 0); the `kernels` line's window_attention,
+   mlp_block and mdta_gram entries carry the counts measured there.
    `norm1`, FFT and convolutions are PyTorch's ops.
 
 The `kernels` line's K2 f32 and bf16, P and K3 entries also carry
@@ -1249,6 +1256,105 @@ def phase_kernel_mlp_block(build_logs: dict) -> dict:
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "launches_per_forward": None}  # per zoo run, from its bf16 forward
+
+
+# Restormer's MDTA Gram side at the cell's batch of 4 images of 416^2 and
+# dim 48: name -> ((h, w), c, heads, calls a forward); levels 1-3 and the
+# latent down and up, and the decoder's level 1 with the refinement at 2 dim
+MDTA_SHAPES = {
+    "level1": ((416, 416), 48, 1, 4),
+    "level2": ((208, 208), 96, 2, 12),
+    "level3": ((104, 104), 192, 4, 12),
+    "latent": ((52, 52), 384, 8, 8),
+    "decoder1": ((416, 416), 96, 1, 8),
+}
+MDTA_IMAGES = 4
+
+
+def _mdta_case(hw, c, heads, dev, seed=0):
+    """Seeded bf16 qkv (4, h, w, 3c) with a per-channel scale and offset, as
+    the depthwise convolution leaves it, and a bf16 temperature a head."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((MDTA_IMAGES, *hw, 3 * c), generator=g, device=dev)
+    x = x * (0.2 + torch.rand((3 * c,), generator=g, device=dev))
+    x = x + 0.5 * torch.randn((3 * c,), generator=g, device=dev)
+    temp = 0.5 + 1.5 * torch.rand((heads, 1, 1), generator=g, device=dev)
+    return x.bfloat16(), temp.bfloat16()
+
+
+def _mdta_f64(qkv, heads, temp):
+    """softmax(temperature * q_hat k_hat^T) in f64 from qkv's bf16 values."""
+    from xmm_superres_denoise_torch.ops.mdta_gram import heads_first
+
+    q, k, _ = qkv.double().chunk(3, dim=-1)
+    q, k = heads_first(q, heads), heads_first(k, heads)
+    logits = (q @ k.transpose(-2, -1)) / (q.norm(dim=-1).clamp(min=1e-12)[..., :, None]
+                                           * k.norm(dim=-1).clamp(min=1e-12)[..., None, :])
+    return torch.softmax(logits * temp.double(), dim=-1)
+
+
+def phase_kernel_mdta_gram(build_logs: dict) -> list:
+    """MDTA's Gram side at the cell's five level shapes (batch 4, dim 48):
+    the kernels against an f64 evaluation from the same bf16 q and k (finite,
+    and per element within the plain bf16 composition's error plus one bf16
+    ulp, else AssertionError), max|diff| against the plain version, CUDA-event
+    times of the kernels and the plain version, the kernels' device time
+    (torch.profiler), their byte bound (q and k read once, the attention
+    written), ptxas's report of the Gram kernel's instance; then the sums over
+    the 44 calls of one forward."""
+    from xmm_superres_denoise_torch.ops.mdta_gram import mdta_attention_plain, mdta_gram
+
+    dev = torch.device("cuda:0")
+    entries, total = [], {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, (hw, c, heads, calls) in MDTA_SHAPES.items():
+        t0 = time.perf_counter()
+        qkv, temp = _mdta_case(hw, c, heads, dev)
+        d = c // heads
+        with torch.inference_mode():
+            got = mdta_gram(qkv, heads, temp).double()
+            plain = mdta_attention_plain(qkv, heads, temp).double()
+            ref = _mdta_f64(qkv, heads, temp)
+            ulp = torch.exp2(torch.floor(torch.log2(ref)) - 7)
+            over = float(((got - ref).abs() - (plain - ref).abs()).div(ulp).max())
+            err = float((got - plain).abs().max())
+            finite = bool(torch.isfinite(got).all())
+            same = float((got == plain).double().mean())
+            del got, plain, ref, ulp
+            ms = _time_ms(lambda: mdta_gram(qkv, heads, temp))
+            dev_ms = _device_ms(lambda: mdta_gram(qkv, heads, temp), iters=5)
+            plain_ms = _time_ms(lambda: mdta_attention_plain(qkv, heads, temp), iters=5)
+        px = hw[0] * hw[1]
+        nbytes = MDTA_IMAGES * (px * 2 * c + heads * d * d) * 2  # q and k in, the attention out
+        bound_ms, bound_by = _bound(2 * MDTA_IMAGES * heads * d * d * px, nbytes, torch.bfloat16)
+        instance = f"mdta_gram_sm90_kernelILi{48 if d <= 48 else 96}ELi{1 if d <= 64 else 2}E"
+        say(f"[kernel] mdta_gram {name} ({MDTA_IMAGES}, {hw[0]}x{hw[1]}, 3x{c}) heads {heads} "
+            f"d {d}: against f64, the plain version's error plus {over:.3f} bf16 ulp at most "
+            f"(bound: 1); max|diff| vs plain {err:.3e} ({same:.2%} bitwise equal, finite "
+            f"{finite}); CUDA events: kernels {ms:.4f} ms (device only {dev_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.4f} GB), "
+            f"{100 * bound_ms / ms:.1f} % of it; {calls} a forward; ptxas: "
+            f"{_ptxas_report(build_logs['mdta_gram'], instance)} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if not finite or not over <= 1.0:
+            raise AssertionError(f"mdta_gram {name} is off its f64 value by more than the plain "
+                                 f"version's error and an ulp: {over} ulp, finite {finite}")
+        for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound_ms)):
+            total[key] += calls * value
+        entries.append({"name": f"mdta_gram {name} ({MDTA_IMAGES}, {px}, 3x{c}) heads {heads}",
+                        "route": "cuda", "source": "xmm_superres_denoise_torch/csrc/mdta_gram.cu",
+                        "replaces": None, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, "calls_per_forward": calls,
+                        "launches_per_forward": None})  # from restormer_denoise's bf16 forward
+        del qkv, temp
+        torch.cuda.empty_cache()
+    per = {k: v / MDTA_IMAGES for k, v in total.items()}
+    say(f"[kernel] mdta_gram over the 44 calls of one forward of {MDTA_IMAGES} at dim 48, per "
+        f"image: kernels {per['ms']:.4f} ms (device only {per['device_ms']:.4f}), plain "
+        f"{per['plain_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms by bytes: "
+        f"{100 * per['bound_ms'] / per['ms']:.1f} % of it")
+    return entries
 
 
 def _k3_forward_ops(b: int, h: int, w: int, blocks: int, group: int) -> int:
@@ -2857,6 +2963,10 @@ ZOO_WA_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 30, "hat_s
 # blocks, HAT's 36 HABs and 6 OCABs; DRCT's wider blocks and Restormer none)
 ZOO_MLP_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 6, "hat_sr": 42,
                     "restormer_denoise": 0}
+# mdta_gram launches in one bf16 forward: one per MDTA (Restormer's 44 at the
+# run config's dim 24, d 24 and 48; the other models none)
+ZOO_MDTA_LAUNCHES = {"swinir_sr": 0, "swinfir_sr": 0, "drct_sr_fsdp": 0, "hat_sr": 0,
+                     "restormer_denoise": 44}
 ZOO_GROUPS = ("GEMM (cuBLAS)", "convolution (cuDNN)", "softmax", "LayerNorm", "FFT",
               "elementwise, copies and the rest")
 
@@ -2946,12 +3056,13 @@ def phase_zoo(tmp: Path) -> dict:
     to the CPU's f32 forward of the same weights at a small size, bf16 held
     to f32 at 416^2 in dB, engine ms per image (CUDA events), peak memory
     and a traced bf16 and f32 forward; then `cli fit` / `test` of swinir_sr.
-    Returns each run's window_attention and mlp_block launches in its bf16
-    forward."""
+    Returns each run's window_attention, mlp_block and mdta_gram launches in
+    its bf16 forward."""
     from xmm_superres_denoise_torch.cli import load_run_config
     from xmm_superres_denoise_torch.infer.run_file import InferenceEngine, load_rate_image
     from xmm_superres_denoise_torch.models.registry import build_model
     from xmm_superres_denoise_torch.ops.precision import true_f32
+    from xmm_superres_denoise_torch.ops.mdta_gram import mdta_gram
     from xmm_superres_denoise_torch.ops.mlp_block import mlp_block
     from xmm_superres_denoise_torch.ops.window_attention import window_attention
     from xmm_superres_denoise_torch.utils.weights import (
@@ -2963,7 +3074,7 @@ def phase_zoo(tmp: Path) -> dict:
     t_all = time.perf_counter()
     files = _write_inputs(tmp)
     raw = np.stack([load_rate_image(f)[0] for f in files])
-    wa_launches, mlp_launches = {}, {}
+    wa_launches, mlp_launches, mdta_launches = {}, {}, {}
     for i, run in enumerate(ZOO_RUNS):
         t0 = time.perf_counter()
         path = ROOT / "res/configs/runs" / f"{run}.toml"
@@ -2996,14 +3107,16 @@ def phase_zoo(tmp: Path) -> dict:
                    "bf16": InferenceEngine(mc, ds, state, dtype=torch.bfloat16)}
         x = engines["f32"].prepare(torch.from_numpy(raw[:SERVE_BATCH]).to("cuda:0"))
         with torch.inference_mode():
-            window_attention.launches = mlp_block.launches = 0
+            window_attention.launches = mlp_block.launches = mdta_gram.launches = 0
             with true_f32():
                 y32 = engines["f32"].model(x).float()
-            wa_f32, mlp_f32 = window_attention.launches, mlp_block.launches
-            window_attention.launches = mlp_block.launches = 0
+            wa_f32, mlp_f32, mdta_f32 = (window_attention.launches, mlp_block.launches,
+                                         mdta_gram.launches)
+            window_attention.launches = mlp_block.launches = mdta_gram.launches = 0
             y16 = engines["bf16"].model(x.bfloat16()).float()
             torch.cuda.synchronize()
             wa_launches[run], mlp_launches[run] = window_attention.launches, mlp_block.launches
+            mdta_launches[run] = mdta_gram.launches
         rms = float(torch.sqrt(torch.mean((y16 - y32) ** 2)))
         db = 20 * math.log10(float(y32.abs().max()) / max(rms, 1e-30))
 
@@ -3040,8 +3153,9 @@ def phase_zoo(tmp: Path) -> dict:
             f"bf16 vs f32 at {lr[0]}^2: {db:.2f} dB (min {ZOO_BF16_DB}); window_attention "
             f"launches in one forward of {SERVE_BATCH}: f32 {wa_f32}, bf16 {wa_launches[run]} "
             f"(expected 0 and {ZOO_WA_LAUNCHES[run]}); mlp_block launches: f32 {mlp_f32}, bf16 "
-            f"{mlp_launches[run]} (expected 0 and {ZOO_MLP_LAUNCHES[run]}) "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"{mlp_launches[run]} (expected 0 and {ZOO_MLP_LAUNCHES[run]}); mdta_gram launches: "
+            f"f32 {mdta_f32}, bf16 {mdta_launches[run]} (expected 0 and "
+            f"{ZOO_MDTA_LAUNCHES[run]}) ({time.perf_counter() - t0:.1f} s)")
         for mode in ("f32", "bf16"):
             say(f"[zoo]   {run} {mode} trace: {traces[mode]}")
         if not (err <= tol and db >= ZOO_BF16_DB and torch.isfinite(y32).all()
@@ -3053,11 +3167,14 @@ def phase_zoo(tmp: Path) -> dict:
         if mlp_f32 != 0 or mlp_launches[run] != ZOO_MLP_LAUNCHES[run]:
             raise AssertionError(f"[zoo] {run}: mlp_block launches f32 {mlp_f32}, bf16 "
                                  f"{mlp_launches[run]}, expected 0 and {ZOO_MLP_LAUNCHES[run]}")
+        if mdta_f32 != 0 or mdta_launches[run] != ZOO_MDTA_LAUNCHES[run]:
+            raise AssertionError(f"[zoo] {run}: mdta_gram launches f32 {mdta_f32}, bf16 "
+                                 f"{mdta_launches[run]}, expected 0 and {ZOO_MDTA_LAUNCHES[run]}")
         del engines, model, cpu_model, x, y32, y16
         torch.cuda.empty_cache()
     _zoo_fit(tmp)
     say(f"[zoo] ({time.perf_counter() - t_all:.2f} s)")
-    return wa_launches, mlp_launches
+    return wa_launches, mlp_launches, mdta_launches
 
 
 def _zoo_fit(tmp: Path) -> None:
@@ -3132,6 +3249,7 @@ def main() -> int:
                                                   phase_kernel_k3(build_logs))
         wa_entries = phase_kernel_window_attention(build_logs)
         mlp_entry = phase_kernel_mlp_block(build_logs)
+        mdta_entries = phase_kernel_mdta_gram(build_logs)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
             int8_launches = phase_serve_int8(ctx, Path(tmp))
@@ -3146,7 +3264,7 @@ def main() -> int:
         phase_train_routes()
         phase_profile(ctx)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_zoo_") as tmp:
-            zoo_wa, zoo_mlp = phase_zoo(Path(tmp))
+            zoo_wa, zoo_mlp, zoo_mdta = phase_zoo(Path(tmp))
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
             entry["launches_end2end"] = e2e_launches[name]["K2"]
@@ -3158,11 +3276,13 @@ def main() -> int:
         for entry in wa_entries:
             entry["launches_per_forward"] = zoo_wa[entry["run"]]
         mlp_entry["launches_per_forward"] = zoo_mlp
+        for entry in mdta_entries:
+            entry["launches_per_forward"] = zoo_mdta["restormer_denoise"]
         p_entry["launches_end2end"] = e2e_launches["int8 calibrate"]["P"]
         k3_entry["launches_end2end"] = k3_fused["launches_end2end"] = (
             e2e_launches["int8 calibrate"]["K3"])
         kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused, k3_taps,
-                    *wa_entries, mlp_entry]
+                    *wa_entries, mlp_entry, *mdta_entries]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

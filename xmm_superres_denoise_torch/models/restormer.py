@@ -3,9 +3,12 @@
 The port of the JAX package's `models/restormer.py`:
 
 * MDTA: transposed (channel) attention. q, k, v from a 1x1 conv and a
-  3x3 depthwise conv, L2-normalized over the pixels; the attention is
-  (d x d) per head with a learned per-head temperature; its logits are f32
-  from operands in the input's dtype, as the zoo's window attention.
+  3x3 depthwise conv, q and k L2-normalized over the pixels; the attention
+  is (d x d) per head with a learned per-head temperature; its logits are
+  f32 from operands in the input's dtype, as the zoo's window attention.
+  That side, from qkv to the softmaxed attention, is `ops/mdta_gram.py:
+  mdta_gram`: hand-written kernels in bf16 serving, the PyTorch ops
+  (`mdta_attention_plain`) otherwise.
 * GDFN: gated depthwise feed-forward.
 * `ChannelLayerNorm`: per-pixel LayerNorm over the channels ('WithBias',
   eps 1e-5 inside the sqrt, biased variance), computed in the input's
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.mdta_gram import heads_first, mdta_gram
 from ..ops.precision import scalar_like
 from ..utils.profiling import annotate
 from .rrdb import pixel_shuffle, pixel_unshuffle
@@ -80,21 +84,9 @@ class MDTA(nn.Module):
 
     def _forward(self, x: Tensor) -> Tensor:
         b, h, w, c = x.shape
-        nh = self.num_heads
-        d = c // nh
-        q, k, v = conv(self.qkv_dwconv, conv(self.qkv, x)).chunk(3, dim=-1)
-
-        def heads_first(t):  # (b, heads, d, hw): channels as rows, pixels contracted
-            return t.reshape(b, h * w, nh, d).permute(0, 2, 3, 1)
-
-        def l2_normalize(t):
-            norm = torch.sqrt(torch.sum(t * t, dim=-1, keepdim=True))
-            return t / torch.clamp(norm, min=1e-12)
-
-        q, k, v = l2_normalize(heads_first(q)), l2_normalize(heads_first(k)), heads_first(v)
-        attn = torch.matmul(q.float(), k.float().transpose(-2, -1))
-        attn = attn * self.temperature.to(x.dtype)
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
+        qkv = conv(self.qkv_dwconv, conv(self.qkv, x))
+        attn = mdta_gram(qkv, self.num_heads, self.temperature)
+        v = heads_first(qkv[..., 2 * c:], self.num_heads)
         out = torch.matmul(attn, v).permute(0, 3, 1, 2).reshape(b, h, w, c)
         return conv(self.project_out, out)
 
