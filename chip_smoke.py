@@ -33,9 +33,12 @@ Phases, each printing its result and its seconds:
    the route each took (the 128-channel s8 wgmma level, or the (tap,
    channel) wgmma route at conv_first's Cin 4), TOP/s, share of the bound
    (conv_first: of its byte floor, raw and fused) and the route's ptxas
-   report and shared memory; the fused window attention at the zoo cells'
-   four shapes (SwinIR's 169 x 169, HAB's 256 x 256 with and without the
-   shift mask, OCAB's 256 x 576 on unfolded keys), finite and within
+   report and shared memory; the fused window attention at the zoo's
+   shapes (SwinIR's 169 x 169, HAB's 256 x 256 with and without the shift
+   mask, OCAB's 256 x 576 on unfolded keys, DRCT's window-16 blocks at d 53
+   and 46 under the mask and d 122 and 77 without, and its d 122 at window
+   13, 169 x 169), each with the ptxas report of the instance it runs and
+   its bound at the true head size, finite and within
    2^-7 (sum_j P_j |v_j| + |o|) + 1e-6 of its plain composition per element
    (P the plain f32 probabilities: the f32 sums' order, one bf16 ulp of P
    and of the output), timed beside the plain version and
@@ -154,9 +157,12 @@ Phases, each printing its result and its seconds:
    the forward's int8 operations at the published peak.
 
 17. zoo: the transformer zoo's five shipped run configs (swinir_sr,
-   swinfir_sr, drct_sr_fsdp, hat_sr, restormer_denoise) at full width with
-   seeded weights, each written as a Flax-layout npz (`layers_scan` for HAT
-   and DRCT) and the 4 files served through `cli serve` in f32 and bf16;
+   swinfir_sr, drct_sr_fsdp, hat_sr, restormer_denoise) and drct_sr_w16
+   (drct_sr_fsdp at patch 16: window 16, blocks 2 and 4 shifted, the model
+   of the cell drct_sr_bf16_bulk) at full width with seeded weights, each
+   written as a Flax-layout npz (`layers_scan` for HAT and DRCT) and, but
+   for drct_sr_w16 (a run config cannot set patch_size), the 4 files
+   served through `cli serve` in f32 and bf16;
    the raw output on the card in f32 (TF32 off) held to the CPU's f32
    forward of the same weights at 52^2 (SwinIR, SwinFIR, DRCT) or 64^2
    (HAT, Restormer), 1e-4 x max(1, max|CPU|); bf16 held to f32 at 416^2,
@@ -168,8 +174,9 @@ Phases, each printing its result and its seconds:
    checkpoint, bitwise equal to the fit's test. The window attention
    counter is read around the f32 and the bf16 forward at 416^2: none in
    f32, and in bf16 one launch per attention (SwinIR and SwinFIR 36, DRCT
-   30, HAT 42, Restormer 0), and so is the MLP half-block's (SwinIR and
-   SwinFIR 36, DRCT 6, HAT 42, Restormer 0), and so is MDTA's Gram side's
+   30 at either window, HAT 42, Restormer 0), and so is the MLP half-block's
+   (SwinIR and SwinFIR 36, DRCT 6, HAT 42, Restormer 0), and so is MDTA's
+   Gram side's
    (Restormer 44, the others 0); the `kernels` line's window_attention,
    mlp_block and mdta_gram entries carry the counts measured there.
    `norm1`, FFT and convolutions are PyTorch's ops.
@@ -188,6 +195,7 @@ kernel libraries under build/torch_kernels/.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import io
 import json
@@ -1036,26 +1044,36 @@ def phase_kernel_k3(build_logs: dict) -> tuple:
 # the zoo cells' attention shapes at their serving batch of 4 images: (name,
 # query window, key window, masked, the zoo run whose forward launches it,
 # its blocks in that forward)
-WA_SHAPES = (("swinir_169x169", 13, 13, False, "swinir_sr", 36),
-             ("hab_256x256", 16, 16, False, "hat_sr", 18),
-             ("hab_256x256_shift_mask", 16, 16, True, "hat_sr", 18),
-             ("ocab_256x576", 16, 24, False, "hat_sr", 6))
+WA_SHAPES = (("swinir_169x169", 13, 13, False, "swinir_sr", 36, 180, 6),
+             ("hab_256x256", 16, 16, False, "hat_sr", 18, 180, 6),
+             ("hab_256x256_shift_mask", 16, 16, True, "hat_sr", 18, 180, 6),
+             ("ocab_256x576", 16, 24, False, "hat_sr", 6, 180, 6),
+             # DRCT's blocks at window 16 (`[zoo]`'s drct_sr_w16, the cell
+             # drct_sr_bf16_bulk's model): 2 and 4 shifted, d 53 and 46 padded
+             # to 64 under the mask; 3 and 5, d 122 and 77 padded to 128, two
+             # warpgroups of two 64-key chunks
+             ("drct_256x256_d53_shift_mask", 16, 16, True, "drct_sr_w16", 6, 212, 4),
+             ("drct_256x256_d46_shift_mask", 16, 16, True, "drct_sr_w16", 6, 276, 6),
+             ("drct_256x256_d122", 16, 16, False, "drct_sr_w16", 6, 244, 2),
+             ("drct_256x256_d77", 16, 16, False, "drct_sr_w16", 6, 308, 4),
+             # DRCT's block 3 at the run config's window 13: 169 keys at d
+             # 122, three warpgroups of one chunk
+             ("drct_169x169_d122", 13, 13, False, "drct_sr_fsdp", 6, 244, 2))
 WA_IMAGES = 4
 WA_SFU_PER_S = 132 * 16 * 1.98e9  # exponentials a second: 16 a cycle an SM at 1.98 GHz
 
 
-def _wa_case(ws: int, owin: int, masked: bool, dev, seed=0):
-    """Seeded bf16 operands of one zoo attention at the serving batch, laid
-    out as the models lay them out: q, k, v strided views of one qkv
-    (WindowAttention), or q from ws windows and k, v the halves of the
-    unfolded owin windows (OCAB); the bias gathered from a bf16 table; the
-    shift mask of the 416^2 image's windows."""
+def _wa_case(ws: int, owin: int, masked: bool, dev, seed=0, c=180, nh=6):
+    """Seeded bf16 operands of one zoo attention of width c over nh heads at
+    the serving batch, laid out as the models lay them out: q, k, v strided
+    views of one qkv (WindowAttention), or q from ws windows and k, v the
+    halves of the unfolded owin windows (OCAB); the bias gathered from a
+    bf16 table; the shift mask of the 416^2 image's windows."""
     from xmm_superres_denoise_torch.models.hat import rpi_oca, unfold_overlap_windows
     from xmm_superres_denoise_torch.models.swin_common import (
         index_buffer, relative_position_index, shift_mask, window_partition)
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    nh, c = 6, 180
     d, side = c // nh, 416
     qkv = torch.randn((WA_IMAGES, side, side, 3 * c), generator=g, device=dev).bfloat16()
     n = ws * ws
@@ -1097,6 +1115,13 @@ def _wa_bound(q, k, v, scale, bias, mask, plain):
     return 2.0**-7 * (torch.matmul(p, v.float().abs()) + plain.float().abs()) + 1e-6
 
 
+def _wa_instance(pl, mask) -> str:
+    """The mangled name of the `window_attention_sm90_kernel<DK, CPW, MASK>`
+    instance that the launch `pl` (`ops/window_attention.py: plan`) runs."""
+    return (f"window_attention_sm90_kernelILi{pl.padded_head}ELi{pl.chunks_per_split}ELb"
+            f"{int(mask is not None)}E")
+
+
 def phase_kernel_window_attention(build_logs: dict) -> list:
     """The fused window attention at the zoo cells' shapes: the kernel
     against its plain composition (finite, and within `_wa_bound` per
@@ -1107,13 +1132,13 @@ def phase_kernel_window_attention(build_logs: dict) -> list:
     import torch.nn.functional as F
 
     from xmm_superres_denoise_torch.ops.window_attention import (
-        window_attention, window_attention_plain)
+        plan, readable, window_attention, window_attention_plain)
 
     dev = torch.device("cuda:0")
     entries = []
-    for name, ws, owin, masked, run, blocks in WA_SHAPES:
+    for name, ws, owin, masked, run, blocks, c, nh in WA_SHAPES:
         t0 = time.perf_counter()
-        q, k, v, scale, bias, mask = _wa_case(ws, owin, masked, dev)
+        q, k, v, scale, bias, mask = _wa_case(ws, owin, masked, dev, c=c, nh=nh)
         b_, nh, n, d = q.shape
         m = k.shape[2]
         with torch.inference_mode():
@@ -1142,7 +1167,7 @@ def phase_kernel_window_attention(build_logs: dict) -> list:
             del float_mask
         pairs = b_ * nh
         nbytes = pairs * (2 * n * d + 2 * m * d) * 2  # q, k, v in, the output out
-        flops = pairs * 2 * 2 * n * m * 32  # q k^T and P v, d padded to 32
+        flops = pairs * 2 * 2 * n * m * d  # q k^T and P v at the true d: padding is cost, not work
         exps_ms = pairs * n * m / WA_SFU_PER_S * 1e3
         bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
         if exps_ms > bound_ms:
@@ -1159,7 +1184,7 @@ def phase_kernel_window_attention(build_logs: dict) -> list:
             f" G exp: {exps_ms:.4f} ms); {blocks} a {run} forward: kernel {ms * per_image:.3f} "
             f"ms an "
             f"image, plain {plain_ms * per_image:.3f}; ptxas: "
-            f"{_ptxas_report(build_logs['window_attention'], 'window_attention_sm90_kernel')} "
+            f"{_ptxas_report(build_logs['window_attention'], _wa_instance(plan(*map(readable, (q, k, v))), mask))} "
             f"({time.perf_counter() - t0:.2f} s)")
         if not finite or not over <= 1.0:
             raise AssertionError(f"window_attention {name} disagrees with its plain version: "
@@ -2945,11 +2970,21 @@ def phase_profile(ctx) -> None:
         )
 
 
-# [zoo]: the transformer zoo's five shipped run configs at full width, seeded weights
-ZOO_RUNS = ("swinir_sr", "swinfir_sr", "drct_sr_fsdp", "hat_sr", "restormer_denoise")
+# [zoo]: the transformer zoo's five shipped run configs at full width, seeded
+# weights, and DRCT at the paper's window 16
+ZOO_RUNS = ("swinir_sr", "swinfir_sr", "drct_sr_fsdp", "hat_sr", "restormer_denoise",
+            "drct_sr_w16")
+# runs no shipped run config states: (the run config, its model's patch_size);
+# drct_sr_w16 is drct_sr_fsdp at patch 16 (416 / 16 = 26 > 16: window 16,
+# blocks 2 and 4 of each group shifted), the model of the benchmark's cell
+# drct_sr_bf16_bulk. A run config cannot set the model's keys, so these are
+# built in Python and not served through `cli serve`.
+ZOO_VARIANTS = {"drct_sr_w16": ("drct_sr_fsdp", 16)}
 # card vs CPU f32 at a size the CPU forwards in seconds: four windows of 13
-# (SwinIR, SwinFIR, DRCT); windows of 16 and three 2x downsamples (HAT, Restormer)
-ZOO_CHECK_PX = {"swinir": 52, "swinfir": 52, "drct": 52, "hat": 64, "restormer": 64}
+# (SwinIR, SwinFIR, DRCT); windows of 16 and three 2x downsamples (HAT, Restormer,
+# DRCT at window 16)
+ZOO_CHECK_PX = {"swinir": 52, "swinfir": 52, "drct": 52, "hat": 64, "restormer": 64,
+                "drct_sr_w16": 64}  # by model, or by run where its window differs
 ZOO_F32_RTOL = 1e-4  # card f32 vs CPU f32 raw output, x max(1, max|CPU|)
 ZOO_BF16_DB = 30.0  # card bf16 vs card f32 at 416^2: 20 log10(max|f32| / RMS(bf16 - f32))
 ZOO_TIMED = 2  # warm batches timed per mode
@@ -2957,16 +2992,16 @@ ZOO_FIT_BASE_NAMES = 20  # 16 train names: 8 steps at swinir_sr's batch of 2
 # window_attention launches in one bf16 forward: one per attention (SwinIR and
 # SwinFIR 6 x 6 Swin blocks, DRCT 6 x 5 dense blocks, HAT 36 HABs and 6 OCABs)
 ZOO_WA_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 30, "hat_sr": 42,
-                   "restormer_denoise": 0}
+                   "restormer_denoise": 0, "drct_sr_w16": 30}
 # mlp_block launches in one bf16 forward: one per MLP half-block at C <= 192
 # and H <= 768 (SwinIR's and SwinFIR's 36 Swin blocks, DRCT's 6 first dense
 # blocks, HAT's 36 HABs and 6 OCABs; DRCT's wider blocks and Restormer none)
 ZOO_MLP_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 6, "hat_sr": 42,
-                    "restormer_denoise": 0}
+                    "restormer_denoise": 0, "drct_sr_w16": 6}
 # mdta_gram launches in one bf16 forward: one per MDTA (Restormer's 44 at the
 # run config's dim 24, d 24 and 48; the other models none)
 ZOO_MDTA_LAUNCHES = {"swinir_sr": 0, "swinfir_sr": 0, "drct_sr_fsdp": 0, "hat_sr": 0,
-                     "restormer_denoise": 44}
+                     "restormer_denoise": 44, "drct_sr_w16": 0}
 ZOO_GROUPS = ("GEMM (cuBLAS)", "convolution (cuDNN)", "softmax", "LayerNorm", "FFT",
               "elementwise, copies and the rest")
 
@@ -3049,10 +3084,11 @@ def _events_ms(fn, x, iters: int) -> float:
 
 
 def phase_zoo(tmp: Path) -> dict:
-    """The transformer zoo on the card: for each shipped run config, the
-    model at full width with seeded weights written as a Flax-layout npz
-    (`layers_scan` for HAT and DRCT), the 4 detxy files served through `cli
-    serve` in f32 and bf16, the raw output (before the engine's clip) held
+    """The transformer zoo on the card: for each shipped run config, and
+    DRCT at patch 16 (`ZOO_VARIANTS`), the model at full width with seeded
+    weights written as a Flax-layout npz (`layers_scan` for HAT and DRCT),
+    the 4 detxy files served through `cli serve` in f32 and bf16 (not the
+    variants: a run config cannot set their patch_size), the raw output (before the engine's clip) held
     to the CPU's f32 forward of the same weights at a small size, bf16 held
     to f32 at 416^2 in dB, engine ms per image (CUDA events), peak memory
     and a traced bf16 and f32 forward; then `cli fit` / `test` of swinir_sr.
@@ -3077,8 +3113,11 @@ def phase_zoo(tmp: Path) -> dict:
     wa_launches, mlp_launches, mdta_launches = {}, {}, {}
     for i, run in enumerate(ZOO_RUNS):
         t0 = time.perf_counter()
-        path = ROOT / "res/configs/runs" / f"{run}.toml"
+        base, patch = ZOO_VARIANTS.get(run, (run, None))
+        path = ROOT / "res/configs/runs" / f"{base}.toml"
         ds, mc, *_ = load_run_config(path)
+        if patch is not None:
+            mc = dataclasses.replace(mc, model=dataclasses.replace(mc.model, patch_size=patch))
         name = mc.name.value
         lr = (ds.lr.res, ds.lr.res)
         hr = (ds.hr.res, ds.hr.res) if ds.hr else lr
@@ -3091,7 +3130,7 @@ def phase_zoo(tmp: Path) -> dict:
         n_params = sum(p.numel() for p in model.parameters())
 
         served = {}
-        for mode, flags in (("f32", []), ("bf16", ["--bf16"])):
+        for mode, flags in (() if patch is not None else (("f32", []), ("bf16", ["--bf16"]))):
             rc, listing, secs = _cli(["serve", *files, "--out", tmp / f"{run}_{mode}",
                                       "--run_config", path, "--checkpoint", npz,
                                       "--batch", SERVE_BATCH, *flags])
@@ -3120,7 +3159,7 @@ def phase_zoo(tmp: Path) -> dict:
         rms = float(torch.sqrt(torch.mean((y16 - y32) ** 2)))
         db = 20 * math.log10(float(y32.abs().max()) / max(rms, 1e-30))
 
-        px = ZOO_CHECK_PX[name]
+        px = ZOO_CHECK_PX.get(run, ZOO_CHECK_PX[name])
         xs = x[:1, :px, :px].contiguous()
         with torch.inference_mode(), true_f32():
             card = engines["f32"].model(xs).float().cpu()
@@ -3142,9 +3181,11 @@ def phase_zoo(tmp: Path) -> dict:
         bound = {m: flops / PEAK_FLOPS[dt] * 1e3
                  for m, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         say(f"[zoo] {run}: {type(model).__name__} at full width ({n_params} parameters, "
-            f"scan_layers {mc.scan_layers}), {lr[0]}^2 -> {hr[0]}^2; cli serve of "
-            f"{SERVE_FILES} files: f32 {served['f32']:.2f} s, bf16 {served['bf16']:.2f} s "
-            f"(each incl. the engine's build, the npz read and FITS I/O); engine ms/image "
+            f"scan_layers {mc.scan_layers}), {lr[0]}^2 -> {hr[0]}^2; "
+            + (f"cli serve of {SERVE_FILES} files: f32 {served['f32']:.2f} s, bf16 "
+               f"{served['bf16']:.2f} s (each incl. the engine's build, the npz read and FITS "
+               f"I/O)" if served else f"patch_size {patch}, built in Python, not served by cli")
+            + f"; engine ms/image "
             f"(CUDA events, batch {SERVE_BATCH}, warm): f32 {ms['f32']:.2f}, bf16 "
             f"{ms['bf16']:.2f}; peak memory f32 {peak['f32']:.2f} GiB, bf16 "
             f"{peak['bf16']:.2f} GiB; {flops / 1e12:.3f} TFLOP per image (matmuls and "

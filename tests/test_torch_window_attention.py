@@ -124,6 +124,15 @@ CASES = {
     "drct_169x169_d46_shift_mask": lambda dev: _window_case(13, 8, shift_hw=(26, 26), device=dev,
                                                             c=276, nh=6),
     "wide_100x384_d64": lambda dev: _free_case(100, 384, 4, device=dev, d=64),
+    # DRCT's dense blocks at window 16 (the benchmark's configuration): 256
+    # keys at d 122 and 77 (blocks 3 and 5, padded to 128), and at d 53 and
+    # 46 under the shift mask (blocks 2 and 4)
+    "drct_256x256_d122": lambda dev: _window_case(16, 8, device=dev, c=244, nh=2),
+    "drct_256x256_d77": lambda dev: _window_case(16, 8, device=dev, c=308, nh=4),
+    "drct_256x256_d53_shift_mask": lambda dev: _window_case(16, 8, shift_hw=(32, 32), device=dev,
+                                                            c=212, nh=4),
+    "drct_256x256_d46_shift_mask": lambda dev: _window_case(16, 8, shift_hw=(32, 32), device=dev,
+                                                            c=276, nh=6),
 }
 
 
@@ -170,6 +179,10 @@ def test_route_reads_grad_mode_and_requires_grad():
     ("drct_169x169_d122", (128, True, 3, 1, 3, 170, 0, False)),
     ("drct_169x169_d46_shift_mask", (64, True, 2, 2, 3, 170, 4, False)),
     ("wide_100x384_d64", (64, True, 3, 2, 2, 384, 0, False)),
+    ("drct_256x256_d122", (128, True, 2, 2, 4, 256, 0, False)),
+    ("drct_256x256_d77", (128, False, 2, 2, 4, 256, 0, False)),
+    ("drct_256x256_d53_shift_mask", (64, False, 2, 2, 4, 256, 4, True)),
+    ("drct_256x256_d46_shift_mask", (64, True, 2, 2, 4, 256, 4, True)),
 ])
 def test_plan_at_the_cells_shapes(name, want):
     q, k, v, _, bias, mask = CASES[name]("cpu")
@@ -242,17 +255,17 @@ def test_padded_head():
         64, 32, 32, 64, 32, 64, 64, 64, 64, 128, 128, 128]
 
 
-@pytest.mark.parametrize("d", [30, 31, 46, 53, 122])
+@pytest.mark.parametrize("d", [30, 31, 46, 53, 77, 122])
 def test_split_covers_every_key_count(d):
-    # every warpgroup holds a chunk below M, the chunks cover M, and the
-    # split is one the kernel has an instance for (csrc: max_cpw, max_ks)
+    # every warpgroup holds a chunk below M, the chunks cover M, within the
+    # kernel's three warpgroups and three chunks each; that the kernel has
+    # an instance for each split is its own check, on the card
+    # (test_kernel_takes_every_split_the_wrapper_makes)
     dk = padded_head(d)
     for m in range(1, MAX_KEYS[dk] + 1):
         pl = plan(*_free_case(4, m, 1, d=d)[:3])
         ks, cpw = pl.splits, pl.chunks_per_split
-        assert pl.padded_head == dk and 1 <= ks <= 3, m
-        assert cpw <= {32: 3, 64: 2, 128: 1}[dk], m
-        assert ks <= cpw if dk == 32 else (ks == 1 or cpw == {64: 2, 128: 1}[dk]), m
+        assert pl.padded_head == dk and 1 <= ks <= 3 and 1 <= cpw <= 3, m
         assert (ks - 1) * cpw * 64 < m <= ks * cpw * 64
 
 
@@ -261,6 +274,7 @@ def test_split_covers_every_key_count(d):
     (64, MAX_KEYS[32] + 1, D, "keys"),
     (64, MAX_KEYS[64] + 1, 46, "keys"),
     (64, MAX_KEYS[128] + 1, 122, "keys"),
+    (64, MAX_KEYS[128] + 1, 77, "keys"),
     (64, 64, MAX_HEAD + 2, "head size"),
 ])
 def test_plan_refuses_shapes_outside_the_range(n, m, d, what):
@@ -375,7 +389,8 @@ def test_off_the_kernel_inputs_take_the_plain_composition_on_the_card(cuda):
 def test_kernel_refuses_shapes_outside_its_range(cuda):
     g = np.random.default_rng(0)
     before = window_attention.launches
-    for n, m, d in ((MAX_QUERIES + 1, 64, D), (64, MAX_KEYS[32] + 1, D), (64, 64, MAX_HEAD + 2)):
+    for n, m, d in ((MAX_QUERIES + 1, 64, D), (64, MAX_KEYS[32] + 1, D),
+                    (256, MAX_KEYS[128] + 1, 122), (64, 64, MAX_HEAD + 2)):
         q, k, v = (_bf16(g, (2, 2, r, d)).to(cuda) for r in (n, m, m))
         with torch.inference_mode(), pytest.raises(ValueError, match="window_attention kernel"):
             window_attention(q, k, v, 0.2)
@@ -383,14 +398,32 @@ def test_kernel_refuses_shapes_outside_its_range(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [30, 46, 77, 122])
+def test_kernel_takes_every_split_the_wrapper_makes(cuda, d):
+    # at each padded head, M at both ends of every chunk count up to
+    # MAX_KEYS: the kernel launches each split `plan` makes (it refuses a
+    # split it has no instance for) and stays within the bound
+    dk = padded_head(d)
+    for chunks in range(1, MAX_KEYS[dk] // 64 + 1):
+        for m in (64 * chunks - 63, 64 * chunks):
+            q, k, v, scale, bias, _ = _free_case(64, m, 2, seed=m, device=cuda, d=d)
+            with torch.inference_mode():
+                got = window_attention(q, k, v, scale, bias)
+                plain = window_attention_plain(q, k, v, scale, bias, None)
+            diff = (got.float() - plain.float()).abs()
+            assert torch.isfinite(got.float()).all(), m
+            assert (diff <= _bound(q, k, v, scale, bias, None, plain)).all(), (m, plan(q, k, v))
+
+
+@pytest.mark.gpu
 def test_kernel_is_warpgroup_mma(cuda):
-    # both products on wgmma (HGMMA) in each of the twelve instances (d
+    # both products on wgmma (HGMMA) in each of the fourteen instances (d
     # padded to 32 with 1-3 chunks a warpgroup, to 64 with 1-2, to 128 with
-    # 1; with and without a mask); no mma.sync (HMMA)
+    # 1-2; with and without a mask); no mma.sync (HMMA)
     counts = sass_counts("window_attention", ("HGMMA", "HMMA"))
     print(counts)
     kernels = {fn: c for fn, c in counts.items() if "window_attention_sm90_kernel" in fn}
-    assert len(kernels) == 12
+    assert len(kernels) == 14
     assert all(c["HGMMA"] > 0 for c in kernels.values()), kernels
     assert sum(c["HMMA"] for c in counts.values()) == 0, counts
 
@@ -418,4 +451,65 @@ def test_one_bf16_forward_launches_the_kernel_once_per_attention(cuda, run, laun
         y = model(x.to(cuda, torch.bfloat16))
     torch.cuda.synchronize()
     assert window_attention.launches - before == launches
+    assert torch.isfinite(y.float()).all()
+
+
+def _serving_case(c: int, nh: int, masked: bool, device, seed=0):
+    """One DRCT block's attention operands at the cell's serving batch: 4
+    images of 416^2 tokens in 16 x 16 windows (2,704 windows), q, k, v the
+    strided views of one qkv drawn on the card, the bias gathered from a
+    bf16 table, the shift mask of the 416^2 image's windows when masked."""
+    from xmm_superres_denoise_torch.models.swin_common import shift_mask
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    ws, n, side = 16, 256, 416
+    windows = 4 * (side // ws) ** 2
+    qkv = torch.randn((windows, n, 3 * c), generator=g, device=device).bfloat16()
+    q, k, v = qkv.reshape(windows, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+    table = torch.randn(((2 * ws - 1) ** 2, nh), generator=g, device=device).bfloat16()
+    idx = index_buffer(relative_position_index(ws, ws)).to(device)
+    bias = table[idx.view(-1)].view(n, n, nh).permute(2, 0, 1)
+    mask = shift_mask(side, side, ws, ws // 2, device) if masked else None
+    return q, k, v, (c // nh) ** -0.5, bias, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,nh,masked", [(180, 6, False), (212, 4, True), (244, 2, False),
+                                         (276, 6, True), (308, 4, False)])
+def test_kernel_at_drct_window16_shapes_at_the_serving_batch(cuda, c, nh, masked):
+    # each of a DRCT group's five blocks at window 16 (d 30, 53 masked, 122,
+    # 46 masked, 77; N = M = 256) over batch 4's windows, within the bound
+    q, k, v, scale, bias, mask = _serving_case(c, nh, masked, cuda)
+    before = window_attention.launches
+    with torch.inference_mode():
+        got = window_attention(q, k, v, scale, bias, mask)
+        plain = window_attention_plain(q, k, v, scale, bias, mask)
+        diff = (got.float() - plain.float()).abs()
+        over = (diff / _bound(q, k, v, scale, bias, mask, plain)).max().item()
+    assert window_attention.launches == before + 1
+    print(f"d {c // nh}{' masked' if masked else ''}: max|diff| {diff.max().item():.3e}, "
+          f"max diff/bound {over:.3f}")
+    assert torch.isfinite(got.float()).all()
+    assert over <= 1.0
+
+
+@pytest.mark.gpu
+def test_one_bf16_drct_forward_at_window_16_launches_the_kernel_30_times(cuda):
+    # the benchmark's DRCT configuration (patch 16: window 16, blocks 2 and 4
+    # of each group shifted), one 416^2 image
+    from benchmark import harness
+    from benchmark.programs import drct as program
+    from xmm_superres_denoise_torch.models.registry import build_model
+
+    cfg = harness.load_cell("drct_sr_bf16_bulk")["cfg"]
+    model = build_model(program.model_config(cfg), (cfg["lr_res"],) * 2, (cfg["hr_res"],) * 2)
+    assert {(b.ws, b.shift) for b in model.modules() if hasattr(b, "shift")} == {(16, 0), (16, 8)}
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    model = model.to(cuda, torch.bfloat16).eval()
+    x = torch.rand((1, 416, 416, 1), generator=torch.Generator().manual_seed(6))
+    before = window_attention.launches
+    with torch.inference_mode():
+        y = model(x.to(cuda, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert window_attention.launches - before == 30
     assert torch.isfinite(y.float()).all()

@@ -27,9 +27,10 @@
 // layout the caller's transpose and reshape want, so that copy goes.
 // Range (checked by the wrapper): N <= 256; d <= 128, padded with zeros to
 // DK = 32, 64 or 128 (the template parameter; an odd d to 64 or more); M <=
-// 576, 384 or 192 for those DK. SwinIR, SwinFIR and HAT have d = 30, DRCT's
-// dense blocks 30, 53, 122, 46 and 77. An odd d is read and written 16 bits
-// at a time, an even one a pair of channels at a time.
+// 576, 384 or 256 for those DK. SwinIR, SwinFIR and HAT have d = 30, DRCT's
+// dense blocks 30, 53, 122, 46 and 77 (M = 256 at each at window 16). An odd
+// d is read and written 16 bits at a time, an even one a pair of channels at
+// a time.
 //
 // What bounds it on this card. Per SwinIR image (36 blocks of 1,024 13 x 13
 // windows x 6 heads) q, k, v and the output are 9.0 GB: 2.7 ms at 3.35
@@ -47,10 +48,18 @@
 // threads each), KS = ceil(chunks / C) with chunks = ceil(M / 64) and C = 3,
 // 2, 1 at DK = 32, 64, 128, each owning CPW = ceil(chunks / KS) chunks of 64
 // keys (a template parameter; at DK = 32 SwinIR 1 x 3, HAB 2 x 2, OCAB 3 x
-// 3). The block stages k (rows of DK bf16 in blocks of 32 channels, zero
-// past d and past M) and v transposed (DK channel rows per 32 keys) in
+// 3). At DK = 128 three warpgroups of one chunk reach 192 keys; past that
+// (DRCT's d = 122 and 77 at window 16: 256 keys) two warpgroups hold two
+// chunks each, 256 threads with up to 255 registers, where a fourth
+// warpgroup of one chunk would cap every thread at 128 registers beside the
+// 64 of its O. Below 193 keys the three-warpgroup form stays: at DRCT's
+// window 13 (169 keys, 4,096 windows) it takes 1.70 ms at d 122 and 8.30 at
+// d 77 against the two-chunk form's 2.27 and 10.20 on an H100 SXM. The
+// block stages k (rows of DK bf16 in blocks of 32 channels,
+// zero past d and past M) and v transposed (DK channel rows per 32 keys) in
 // shared memory with the 64-byte swizzle, all of a thread's loads issued
-// before its stores, then walks the ceil(N / 64) query tiles of 64 rows.
+// before its stores (in two halves in the two-chunk DK = 128 form), then
+// walks the ceil(N / 64) query tiles of 64 rows.
 // Per tile each warpgroup:
 // 1. loads its q fragments straight from device memory into registers,
 //    scaled and rounded (the A operand of the RS form), at DK = 32 the next
@@ -200,14 +209,17 @@ __device__ __forceinline__ void pv_mma(float (&o)[DK / 2], const uint32_t (&a)[4
 
 // The split the wrapper makes (ops/window_attention.py: _split): at most
 // max_cpw(DK) chunks of 64 keys a warpgroup, at most 3 warpgroups, so the S
-// registers (32 a chunk) fit beside O (DK / 2) and the q fragments (DK / 4).
+// registers (32 a chunk) fit beside O (DK / 2) and the q fragments (DK / 4);
+// at DK = 128 two chunks a warpgroup only with two warpgroups (256 keys).
 // The widest block of each instance, and the blocks an SM should hold: at
 // DK = 32, CPW 1 and 2 are held to 128 registers, so two HAB blocks share
 // an SM.
-__host__ __device__ constexpr int max_cpw(int dk) { return dk == 32 ? 3 : dk == 64 ? 2 : 1; }
+__host__ __device__ constexpr int max_cpw(int dk) { return dk == 32 ? 3 : 2; }
 __host__ __device__ constexpr int max_ks(int dk, int cpw) {
-  return dk == 32 ? cpw : cpw == max_cpw(dk) ? 3 : 1;
+  return dk == 32 ? cpw : dk == 64 ? (cpw == 2 ? 3 : 1) : (cpw == 1 ? 3 : 2);
 }
+// The two-chunk form at DK = 128 runs only as two warpgroups: no fewer.
+__host__ __device__ constexpr int min_ks(int dk, int cpw) { return dk == 128 && cpw == 2 ? 2 : 1; }
 __host__ __device__ constexpr int min_blocks(int dk, int cpw) {
   return dk == 32 ? (cpw == 1 ? 4 : cpw == 2 ? 2 : 1) : 1;
 }
@@ -228,7 +240,12 @@ __global__ void __launch_bounds__(128 * max_ks(DK, CPW), min_blocks(DK, CPW))
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* const smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  const int KS = blockDim.x / 128;
+  // A form that takes more than one warpgroup at least takes exactly that
+  // many (min_ks == max_ks), so its block size is a constant here and the
+  // staging addresses fold to offsets of one base.
+  constexpr int FIXED_KS = min_ks(DK, CPW) > 1 ? min_ks(DK, CPW) : 0;
+  const int KS = FIXED_KS ? FIXED_KS : blockDim.x / 128;
+  const int threads = FIXED_KS ? 128 * FIXED_KS : blockDim.x;
   const int Mp = KS * CPW * CHUNK;
   uint8_t* const s_k = smem;
   uint8_t* const s_v = smem + Mp * DK * 2;
@@ -245,38 +262,46 @@ __global__ void __launch_bounds__(128 * max_ks(DK, CPW), min_blocks(DK, CPW))
 
   // Each thread stages CPW * DK / 4 pairs of k and CPW * DK / 8 pairs of
   // pairs of v (Mp * DK / 2 and Mp * DK / 4 items over 128 * KS threads),
-  // all loads issued before the first store.
-  // k: item (key, channel pair); zeros past M and past d
+  // all loads of a pass issued before its first store: one pass, or two
+  // halves in the two-chunk DK = 128 form, whose 128 words at once would
+  // not fit beside their addresses.
+  constexpr int PASSES = FIXED_KS ? 2 : 1;
+  constexpr int KW = CPW * DK / 4 / PASSES, VW = CPW * DK / 8 / PASSES;
   const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  uint32_t kw[CPW * DK / 4];
-#pragma unroll
-  for (int it = 0; it < CPW * DK / 4; ++it) {
-    const int i = tid + it * blockDim.x, key = i / CP, ch = 2 * (i % CP);
-    kw[it] = key < M && ch < d ? ld_pair(kb + key * p.k_sn + ch, ch, d, pairs) : 0u;
-  }
-  // v transposed: item (key pair, channel pair) -> two words of two keys,
-  // one in channel row ch, one in ch + 1, of the key's 32-key block
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  uint32_t vw[CPW * DK / 8][2];
 #pragma unroll
-  for (int it = 0; it < CPW * DK / 8; ++it) {
-    const int i = tid + it * blockDim.x, key = 2 * (i / CP), ch = 2 * (i % CP);
-    vw[it][0] = key < M && ch < d ? ld_pair(vb + key * p.v_sn + ch, ch, d, pairs) : 0u;
-    vw[it][1] = key + 1 < M && ch < d ? ld_pair(vb + (key + 1) * p.v_sn + ch, ch, d, pairs) : 0u;
-  }
+  for (int pass = 0; pass < PASSES; ++pass) {
+    // k: item (key, channel pair); zeros past M and past d
+    uint32_t kw[KW];
 #pragma unroll
-  for (int it = 0; it < CPW * DK / 4; ++it) {
-    const int i = tid + it * blockDim.x, key = i / CP, ch = 2 * (i % CP);
-    *reinterpret_cast<uint32_t*>(s_k + (ch >> 5) * Mp * ROW + sw64(key, 2 * (ch & 31))) = kw[it];
-  }
+    for (int it = 0; it < KW; ++it) {
+      const int i = tid + (pass * KW + it) * threads, key = i / CP, ch = 2 * (i % CP);
+      kw[it] = key < M && ch < d ? ld_pair(kb + key * p.k_sn + ch, ch, d, pairs) : 0u;
+    }
+    // v transposed: item (key pair, channel pair) -> two words of two keys,
+    // one in channel row ch, one in ch + 1, of the key's 32-key block
+    uint32_t vw[VW][2];
 #pragma unroll
-  for (int it = 0; it < CPW * DK / 8; ++it) {
-    const int i = tid + it * blockDim.x, key = 2 * (i / CP), ch = 2 * (i % CP);
-    uint8_t* blk = s_v + (key >> 5) * DK * ROW;
-    const int byte = 2 * (key & 31);
-    *reinterpret_cast<uint32_t*>(blk + sw64(ch, byte)) = __byte_perm(vw[it][0], vw[it][1], 0x5410);
-    *reinterpret_cast<uint32_t*>(blk + sw64(ch + 1, byte)) =
-        __byte_perm(vw[it][0], vw[it][1], 0x7632);
+    for (int it = 0; it < VW; ++it) {
+      const int i = tid + (pass * VW + it) * threads, key = 2 * (i / CP), ch = 2 * (i % CP);
+      vw[it][0] = key < M && ch < d ? ld_pair(vb + key * p.v_sn + ch, ch, d, pairs) : 0u;
+      vw[it][1] =
+          key + 1 < M && ch < d ? ld_pair(vb + (key + 1) * p.v_sn + ch, ch, d, pairs) : 0u;
+    }
+#pragma unroll
+    for (int it = 0; it < KW; ++it) {
+      const int i = tid + (pass * KW + it) * threads, key = i / CP, ch = 2 * (i % CP);
+      *reinterpret_cast<uint32_t*>(s_k + (ch >> 5) * Mp * ROW + sw64(key, 2 * (ch & 31))) = kw[it];
+    }
+#pragma unroll
+    for (int it = 0; it < VW; ++it) {
+      const int i = tid + (pass * VW + it) * threads, key = 2 * (i / CP), ch = 2 * (i % CP);
+      uint8_t* blk = s_v + (key >> 5) * DK * ROW;
+      const int byte = 2 * (key & 31);
+      *reinterpret_cast<uint32_t*>(blk + sw64(ch, byte)) = __byte_perm(vw[it][0], vw[it][1], 0x5410);
+      *reinterpret_cast<uint32_t*>(blk + sw64(ch + 1, byte)) =
+          __byte_perm(vw[it][0], vw[it][1], 0x7632);
+    }
   }
   fence_proxy_async();
   __syncthreads();
@@ -568,8 +593,8 @@ int window_attention(int device, const void* q, const void* k, const void* v, lo
                      int dk, int pairs, float scale, int ks, int cpw, void* stream) {
   const DeviceGuard guard(device);  // the caller's device again on every return
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
-  if ((dk != 32 && dk != 64 && dk != 128) || d > dk || cpw < 1 || cpw > max_cpw(dk) || ks < 1 ||
-      ks > max_ks(dk, cpw))
+  if ((dk != 32 && dk != 64 && dk != 128) || d > dk || cpw < 1 || cpw > max_cpw(dk) ||
+      ks < min_ks(dk, cpw) || ks > max_ks(dk, cpw))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -595,7 +620,8 @@ int window_attention(int device, const void* q, const void* k, const void* v, lo
   } else if (dk == 64) {
     err = cpw == 1 ? launch<64, 1>(p, masked, blocks, ks, s) : launch<64, 2>(p, masked, blocks, ks, s);
   } else {
-    err = launch<128, 1>(p, masked, blocks, ks, s);
+    err = cpw == 1 ? launch<128, 1>(p, masked, blocks, ks, s)
+                   : launch<128, 2>(p, masked, blocks, ks, s);
   }
   return static_cast<int>(err);
 }

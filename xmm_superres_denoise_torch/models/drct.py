@@ -13,6 +13,13 @@ back to `dim`, with a 0.2-scaled residual.
   group an identity; the JAX package fixed it and the port keeps the fix).
 * `use_checkpoint` checkpoints each Swin block, as the JAX package remats
   them; `scan_layers` is the layout option of `models/swinir.py: SwinIR`.
+
+Tracing: each RDG forward is a span (`zoo.rdg`) and so is each of its five
+dense steps, the adjust convolution with its LeakyReLU and concatenation
+(`zoo.dense`; `utils/profiling.py: annotate`). The RDG counts itself in
+class attributes, process-wide as `models/hat.py: HAB.calls`: `RDG.calls`,
+and `RDG.masked_attn_calls`, its Swin blocks whose attention took the shift
+mask (blocks 2 and 4 when the window is not clamped).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.precision import lrelu, scalar_like
+from ..utils.profiling import annotate
 from .swin_common import (
     LayerNorm,
     SwinTransformerBlock,
@@ -42,6 +50,9 @@ Tensor = torch.Tensor
 class RDG(nn.Module):
     """Residual Dense Group of 5 dense-connected Swin blocks."""
 
+    calls = 0  # forwards (module docstring)
+    masked_attn_calls = 0  # Swin blocks run whose attention took the shift mask
+
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window_size: int, mlp_ratio: float, gc: int, drop_path_rate: float = 0.0,
                  use_checkpoint: bool = False):
@@ -58,15 +69,23 @@ class RDG(nn.Module):
             setattr(self, f"adjust{i}", conv2d_torch(dim if i == 5 else gc, channels, kernel=1))
 
     def forward(self, x: Tensor, x_size: Tuple[int, int], generator=None) -> Tensor:
+        RDG.calls += 1
+        with annotate("zoo.rdg"):
+            return self._forward(x, x_size, generator)
+
+    def _forward(self, x: Tensor, x_size: Tuple[int, int], generator) -> Tensor:
         feats = x
         for i in range(1, 6):
-            t = checkpoint_block(getattr(self, f"swin{i}"), self.use_checkpoint, feats, x_size,
-                                 generator=generator)
-            t = conv(getattr(self, f"adjust{i}"), to_image(t, x_size))
-            if i < 5:
-                t = to_tokens(lrelu(t, 0.2))
-                # the first concat is (x1, x), later ones append
-                feats = torch.cat([t, feats] if i == 1 else [feats, t], dim=-1)
+            block = getattr(self, f"swin{i}")
+            if block.shift > 0:
+                RDG.masked_attn_calls += 1
+            t = checkpoint_block(block, self.use_checkpoint, feats, x_size, generator=generator)
+            with annotate("zoo.dense"):
+                t = conv(getattr(self, f"adjust{i}"), to_image(t, x_size))
+                if i < 5:
+                    t = to_tokens(lrelu(t, 0.2))
+                    # the first concat is (x1, x), later ones append
+                    feats = torch.cat([t, feats] if i == 1 else [feats, t], dim=-1)
         x5 = to_tokens(t)
         return x5 * scalar_like(x5, 0.2) + x
 

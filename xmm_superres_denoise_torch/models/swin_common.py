@@ -37,9 +37,11 @@ The port of the JAX package's `models/swin_common.py`:
 Effective-window rule: when min(input_resolution) <= window_size the
 window clamps to min(input_resolution) and the shift drops to 0, where
 input_resolution = img_size // patch_size from the config, not the
-tensor's size. At the production configs (img 416, patch 32 -> 13 < 16)
-SwinIR, SwinFIR and DRCT run window 13 with no shift; the bias-table
-shapes depend on it.
+tensor's size. At the production run configs (img 416, patch 32 -> 13 <
+16) SwinIR, SwinFIR and DRCT run window 13 with no shift; the bias-table
+shapes depend on it. That holds only at patch 32: at patch 16 (416 / 16 =
+26 > 16), as HAT's run config and the benchmark's DRCT configuration set
+it, the window stays 16 and every other block shifts by 8.
 """
 
 from __future__ import annotations

@@ -23,6 +23,9 @@ dtype once normalised, `attn @ v` in the input dtype.
   the f32 logits in device memory.
 * `plan` checks a kernel input and returns what the launch is handed: the
   split of the keys over warpgroups, the strides, the bias and mask layout.
+  The range: N <= 256 queries, d <= 128 padded to 32, 64 or 128, and M <=
+  576, 384 or 256 keys at those paddings (`MAX_KEYS`): SwinIR's and HAT's d
+  = 30, and DRCT's dense blocks (d 30, 53, 122, 46, 77) at window 16.
 * `window_attention.launches` counts kernel launches (one per call on the
   kernel's path).
 
@@ -48,11 +51,12 @@ Tensor = torch.Tensor
 
 MAX_QUERIES = 256  # N: four 64-row query tiles
 MAX_HEAD = 128     # d, padded to 32, 64 or 128
-# chunks of 64 keys a warpgroup holds at each padded d; three warpgroups
+# chunks of 64 keys a warpgroup holds at each padded d, over at most three
+# warpgroups; past three chunks at 128, two warpgroups of two (`_split`)
 _CHUNKS_PER_SPLIT = {32: 3, 64: 2, 128: 1}
 _MAX_SPLITS = 3
 _CHUNK = 64
-MAX_KEYS = {dk: _CHUNK * _MAX_SPLITS * c for dk, c in _CHUNKS_PER_SPLIT.items()}  # M
+MAX_KEYS = {32: 576, 64: 384, 128: 256}  # M
 _MAX_GRID = 2**31 - 1
 
 _I, _P, _L = cuda_build.I, cuda_build.P, ctypes.c_longlong
@@ -124,10 +128,15 @@ def padded_head(d: int) -> int:
 
 
 def _split(m: int, dk: int) -> Tuple[int, int]:
-    """(warpgroups, chunks each) for M keys at padded head size dk: at most
-    `_CHUNKS_PER_SPLIT[dk]` chunks a warpgroup, as few warpgroups as that
-    allows, the chunks spread evenly."""
+    """(warpgroups, chunks each) for M <= MAX_KEYS[dk] keys at padded head
+    size dk: at most `_CHUNKS_PER_SPLIT[dk]` chunks a warpgroup, as few
+    warpgroups as that allows, the chunks spread evenly; at 128, four
+    chunks (193-256 keys) as two warpgroups of two. The kernel has an
+    instance for each such split and refuses any other (csrc: max_cpw,
+    max_ks, min_ks)."""
     chunks = -(-m // _CHUNK)
+    if dk == 128 and chunks > _MAX_SPLITS:
+        return 2, 2
     splits = -(-chunks // _CHUNKS_PER_SPLIT[dk])
     return splits, -(-chunks // splits)
 
@@ -137,7 +146,7 @@ def plan(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor] = None,
     """Check that the kernel takes these operands and say how it is launched.
 
     Raises ValueError outside the kernel's range: N <= 256 queries, d <= 128,
-    M <= 576, 384 or 192 keys at d padded to 32, 64 or 128 (`MAX_KEYS`), the
+    M <= 576, 384 or 256 keys at d padded to 32, 64 or 128 (`MAX_KEYS`), the
     channels of a row contiguous and, at an even d, even strides and every
     operand 4-byte aligned, bias (nh, N, M) in q's dtype, mask (nW, N, M)
     float32 with B_ a multiple of nW."""
