@@ -6,9 +6,9 @@
 Phases, each printing its result and its seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and what PyTorch sees;
-2. build: the seven kernel libraries compiled with nvcc for sm_90a, all at
+2. build: the eight kernel libraries compiled with nvcc for sm_90a, all at
    once (ptxas reports): K2 dense_block, K1 dense_block_s2d, P int8_gemm,
-   K3 conv_i8, window_attention, mlp_block, mdta_gram;
+   K3 conv_i8, window_attention, mlp_block, mdta_gram, window_qkv;
 3. kernel: each kernel held against its plain PyTorch version at the shapes
    the main paths give it, and timed with CUDA events beside the plain
    version, a library call where one computes the same function, and its
@@ -48,6 +48,14 @@ Phases, each printing its result and its seconds:
    b2|) + 2^-10 max|y| of its plain composition per element (y = plain -
    x: one bf16 ulp at the output's, the bias add's and fc2's roundings),
    timed beside the plain version with its bound by operations and bytes;
+   the Swin blocks' qkv side (`window_qkv`: norm1, the cyclic shift and the
+   window partition gathered into the qkv wgmma, its bias in the epilogue)
+   with every instance's ptxas report, at SwinIR's (4, 416^2, 180) window
+   13, DRCT's widest C 308 at window 16 shifted by 8 and HAB's C 180
+   shifted without the norm, finite, within 2^-7 (|plain| + |y|) + 2^-10
+   max|y| of its plain composition per element (y = plain - bias) with at
+   most 2 % of the elements differing, timed beside the plain version with
+   its bound by bytes and operations;
    MDTA's Gram side (`mdta_gram`: the Gram and sums of squares over the
    pixels on wgmma, then the softmax) at Restormer's five level shapes at
    batch 4 and dim 48, finite and within the plain bf16 composition's error
@@ -175,11 +183,11 @@ Phases, each printing its result and its seconds:
    counter is read around the f32 and the bf16 forward at 416^2: none in
    f32, and in bf16 one launch per attention (SwinIR and SwinFIR 36, DRCT
    30 at either window, HAT 42, Restormer 0), and so is the MLP half-block's
-   (SwinIR and SwinFIR 36, DRCT 6, HAT 42, Restormer 0), and so is MDTA's
-   Gram side's
-   (Restormer 44, the others 0); the `kernels` line's window_attention,
-   mlp_block and mdta_gram entries carry the counts measured there.
-   `norm1`, FFT and convolutions are PyTorch's ops.
+   (SwinIR and SwinFIR 36, DRCT 6, HAT 42, Restormer 0), MDTA's Gram side's
+   (Restormer 44, the others 0) and the qkv side's (SwinIR and SwinFIR 36,
+   DRCT 30, HAT 36, Restormer 0); the `kernels` line's window_attention,
+   mlp_block, window_qkv and mdta_gram entries carry the counts measured
+   there. FFT and convolutions are PyTorch's ops.
 
 The `kernels` line's K2 f32 and bf16, P and K3 entries also carry
 `launches_end2end`, their launches in one `cli end2end` batch. K1's entries
@@ -1281,6 +1289,113 @@ def phase_kernel_mlp_block(build_logs: dict) -> dict:
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "launches_per_forward": None}  # per zoo run, from its bf16 forward
+
+
+# the Swin blocks' qkv side at the cells' batch of 4 images of 416^2 tokens:
+# name -> (C, window, shift, norm, run, blocks of this shape a forward of
+# `run`): SwinIR's and SwinFIR's blocks; DRCT's five dense blocks at window
+# 16, one per instance of the kernel, six of each a forward (C 180 to 276
+# as its blocks 1 to 4 run them, blocks 2 and 4 shifted, and the widest, C
+# 308, shifted); HAB's (its norm off, shifted)
+QKV_SHAPES = {
+    "swinir": (180, 13, 0, True, "swinir_sr", 36),
+    "drct_c180": (180, 16, 0, True, "drct_sr_w16", 6),
+    "drct_c212_shifted": (212, 16, 8, True, "drct_sr_w16", 6),
+    "drct_c244": (244, 16, 0, True, "drct_sr_w16", 6),
+    "drct_c276_shifted": (276, 16, 8, True, "drct_sr_w16", 6),
+    "drct_c308_shifted": (308, 16, 8, True, "drct_sr_w16", 6),
+    "hab_shifted": (180, 16, 8, False, "hat_sr", 36),
+}
+QKV_IMAGES = 4
+QKV_MAX_UNEQUAL = 0.001  # share of outputs that may differ from the plain composition
+
+
+def _qkv_case(c, norm_on, dev, seed=0):
+    """Seeded bf16 tokens (4, 416^2, c) with a per-channel scale and offset,
+    a LayerNorm (or None) and the qkv Linear (c -> 3c) with parameters of
+    the size a trained block holds."""
+    from xmm_superres_denoise_torch.models.swin_common import LayerNorm, dense_torch_init
+
+    g = torch.Generator().manual_seed(seed)
+    norm, qkv = LayerNorm(c), dense_torch_init(c, 3 * c)
+    with torch.no_grad():
+        norm.scale.copy_(1 + 0.2 * torch.randn(c, generator=g))
+        norm.bias.copy_(0.2 * torch.randn(c, generator=g))
+        qkv.weight.copy_(torch.randn(3 * c, c, generator=g) / c ** 0.5)
+        qkv.bias.copy_(0.5 * torch.randn(3 * c, generator=g))
+    gd = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = (torch.randn((QKV_IMAGES, 416 * 416, c), generator=gd, device=dev)
+         * (0.5 + torch.rand((c,), generator=gd, device=dev))
+         + torch.randn((c,), generator=gd, device=dev))
+    norm = norm.to(dev, torch.bfloat16).eval() if norm_on else None
+    return x.bfloat16(), norm, qkv.to(dev, torch.bfloat16).eval()
+
+
+def phase_kernel_window_qkv(build_logs: dict) -> list:
+    """The Swin blocks' qkv side (norm1, the cyclic shift, the window
+    partition, the qkv GEMM and its bias) at `QKV_SHAPES`: the ptxas report
+    of every instance, then per shape the kernel against its plain
+    composition (finite, per element within 2^-7 (|plain| + |y|) + 2^-10
+    max|y|, y = plain - bias, and at most QKV_MAX_UNEQUAL of the elements
+    differing, else AssertionError), CUDA-event times of the kernel and the
+    plain version, the kernel's device time (torch.profiler) and its bound
+    by bytes and operations."""
+    from xmm_superres_denoise_torch.ops.window_qkv import (
+        K_STEPS, k_steps, window_qkv, window_qkv_plain)
+
+    dev = torch.device("cuda:0")
+    for ks in K_STEPS:
+        for norm_on in (True, False):
+            say(f"[kernel] window_qkv instance <{ks}, {norm_on}> ptxas: "
+                f"{_ptxas_report(build_logs['window_qkv'], f'window_qkv_sm90_kernelILi{ks}ELb{int(norm_on)}E')}")
+    entries = []
+    for name, (c, ws, shift, norm_on, run, blocks) in QKV_SHAPES.items():
+        t0 = time.perf_counter()
+        x, norm, qkv = _qkv_case(c, norm_on, dev)
+        size = (416, 416)
+        with torch.inference_mode():
+            got = window_qkv(x, size, ws, shift, norm, qkv)
+            plain = window_qkv_plain(x, size, ws, shift, norm, qkv)
+            p = plain.float()
+            y = p - qkv.bias.float()
+            diff = (got.float() - p).abs()
+            bound = 2.0**-7 * (p.abs() + y.abs()) + 2.0**-10 * y.abs().max()
+            err = float(diff.max())
+            over = float((diff / bound).max())
+            finite = bool(torch.isfinite(got.float()).all())
+            unequal = float((got != plain).float().mean())
+            del got, plain, p, y, diff, bound
+            ms = _time_ms(lambda: window_qkv(x, size, ws, shift, norm, qkv))
+            dev_ms = _device_ms(lambda: window_qkv(x, size, ws, shift, norm, qkv), iters=5)
+            plain_ms = _time_ms(lambda: window_qkv_plain(x, size, ws, shift, norm, qkv), iters=5)
+        tokens = x.shape[0] * x.shape[1]
+        flops = 2 * tokens * c * 3 * c  # at the true C and 3C: padding is cost, not work
+        nbytes = tokens * (2 * c + 6 * c) + 2 * (3 * c * c + 3 * c + (2 * c if norm_on else 0))
+        bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
+        per_image = blocks / QKV_IMAGES
+        ks = k_steps(c)
+        say(f"[kernel] window_qkv {name} ({QKV_IMAGES}, 416^2, {c}) window {ws} shift {shift} "
+            f"norm {norm_on}: max|diff| vs plain {err:.3e}, {over:.3f} of the bound at most "
+            f"({unequal:.3%} of the elements differ, finite {finite}); CUDA events: kernel "
+            f"{ms:.4f} ms (device only {dev_ms:.4f}), plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.3f} GB: "
+            f"{nbytes / 3.35e12 * 1e3:.4f} ms; {flops / 1e9:.1f} GFLOP: "
+            f"{flops / 989e12 * 1e3:.4f} ms), {100 * bound_ms / ms:.1f} % of it; {blocks} a {run} "
+            f"forward: kernel {ms * per_image:.3f} ms an image, plain {plain_ms * per_image:.3f}; "
+            f"ptxas: {_ptxas_report(build_logs['window_qkv'], f'window_qkv_sm90_kernelILi{ks}ELb{int(norm_on)}E')} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if not finite or not over <= 1.0 or not unequal <= QKV_MAX_UNEQUAL:
+            raise AssertionError(f"window_qkv {name} disagrees with its plain version: max|diff| "
+                                 f"{err}, {over} of the bound, {unequal} unequal, finite {finite}")
+        entries.append({"name": f"window_qkv {name}", "route": "cuda",
+                        "source": "xmm_superres_denoise_torch/csrc/window_qkv.cu",
+                        "replaces": None, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, "run": run, "blocks_per_forward": blocks,
+                        "launches_per_forward": None})  # from the zoo's bf16 forward of `run`
+        del x, norm, qkv
+        torch.cuda.empty_cache()
+    return entries
 
 
 # Restormer's MDTA Gram side at the cell's batch of 4 images of 416^2 and
@@ -3002,6 +3117,11 @@ ZOO_MLP_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 6, "hat_s
 # run config's dim 24, d 24 and 48; the other models none)
 ZOO_MDTA_LAUNCHES = {"swinir_sr": 0, "swinfir_sr": 0, "drct_sr_fsdp": 0, "hat_sr": 0,
                      "restormer_denoise": 44, "drct_sr_w16": 0}
+# window_qkv launches in one bf16 forward: one per Swin block's qkv side
+# (SwinIR's and SwinFIR's 36, DRCT's 30 at either window, HAT's 36 HABs; its
+# OCABs and Restormer none)
+ZOO_QKV_LAUNCHES = {"swinir_sr": 36, "swinfir_sr": 36, "drct_sr_fsdp": 30, "hat_sr": 36,
+                    "restormer_denoise": 0, "drct_sr_w16": 30}
 ZOO_GROUPS = ("GEMM (cuBLAS)", "convolution (cuDNN)", "softmax", "LayerNorm", "FFT",
               "elementwise, copies and the rest")
 
@@ -3092,8 +3212,8 @@ def phase_zoo(tmp: Path) -> dict:
     to the CPU's f32 forward of the same weights at a small size, bf16 held
     to f32 at 416^2 in dB, engine ms per image (CUDA events), peak memory
     and a traced bf16 and f32 forward; then `cli fit` / `test` of swinir_sr.
-    Returns each run's window_attention, mlp_block and mdta_gram launches in
-    its bf16 forward."""
+    Returns each run's window_attention, mlp_block, mdta_gram and window_qkv
+    launches in its bf16 forward."""
     from xmm_superres_denoise_torch.cli import load_run_config
     from xmm_superres_denoise_torch.infer.run_file import InferenceEngine, load_rate_image
     from xmm_superres_denoise_torch.models.registry import build_model
@@ -3101,6 +3221,7 @@ def phase_zoo(tmp: Path) -> dict:
     from xmm_superres_denoise_torch.ops.mdta_gram import mdta_gram
     from xmm_superres_denoise_torch.ops.mlp_block import mlp_block
     from xmm_superres_denoise_torch.ops.window_attention import window_attention
+    from xmm_superres_denoise_torch.ops.window_qkv import window_qkv
     from xmm_superres_denoise_torch.utils.weights import (
         load_params_npz,
         params_from_flax,
@@ -3110,7 +3231,7 @@ def phase_zoo(tmp: Path) -> dict:
     t_all = time.perf_counter()
     files = _write_inputs(tmp)
     raw = np.stack([load_rate_image(f)[0] for f in files])
-    wa_launches, mlp_launches, mdta_launches = {}, {}, {}
+    wa_launches, mlp_launches, mdta_launches, qkv_launches = {}, {}, {}, {}
     for i, run in enumerate(ZOO_RUNS):
         t0 = time.perf_counter()
         base, patch = ZOO_VARIANTS.get(run, (run, None))
@@ -3147,15 +3268,17 @@ def phase_zoo(tmp: Path) -> dict:
         x = engines["f32"].prepare(torch.from_numpy(raw[:SERVE_BATCH]).to("cuda:0"))
         with torch.inference_mode():
             window_attention.launches = mlp_block.launches = mdta_gram.launches = 0
+            window_qkv.launches = 0
             with true_f32():
                 y32 = engines["f32"].model(x).float()
-            wa_f32, mlp_f32, mdta_f32 = (window_attention.launches, mlp_block.launches,
-                                         mdta_gram.launches)
+            wa_f32, mlp_f32, mdta_f32, qkv_f32 = (window_attention.launches, mlp_block.launches,
+                                                  mdta_gram.launches, window_qkv.launches)
             window_attention.launches = mlp_block.launches = mdta_gram.launches = 0
+            window_qkv.launches = 0
             y16 = engines["bf16"].model(x.bfloat16()).float()
             torch.cuda.synchronize()
             wa_launches[run], mlp_launches[run] = window_attention.launches, mlp_block.launches
-            mdta_launches[run] = mdta_gram.launches
+            mdta_launches[run], qkv_launches[run] = mdta_gram.launches, window_qkv.launches
         rms = float(torch.sqrt(torch.mean((y16 - y32) ** 2)))
         db = 20 * math.log10(float(y32.abs().max()) / max(rms, 1e-30))
 
@@ -3196,7 +3319,9 @@ def phase_zoo(tmp: Path) -> dict:
             f"(expected 0 and {ZOO_WA_LAUNCHES[run]}); mlp_block launches: f32 {mlp_f32}, bf16 "
             f"{mlp_launches[run]} (expected 0 and {ZOO_MLP_LAUNCHES[run]}); mdta_gram launches: "
             f"f32 {mdta_f32}, bf16 {mdta_launches[run]} (expected 0 and "
-            f"{ZOO_MDTA_LAUNCHES[run]}) ({time.perf_counter() - t0:.1f} s)")
+            f"{ZOO_MDTA_LAUNCHES[run]}); window_qkv launches: f32 {qkv_f32}, bf16 "
+            f"{qkv_launches[run]} (expected 0 and {ZOO_QKV_LAUNCHES[run]}) "
+            f"({time.perf_counter() - t0:.1f} s)")
         for mode in ("f32", "bf16"):
             say(f"[zoo]   {run} {mode} trace: {traces[mode]}")
         if not (err <= tol and db >= ZOO_BF16_DB and torch.isfinite(y32).all()
@@ -3211,11 +3336,14 @@ def phase_zoo(tmp: Path) -> dict:
         if mdta_f32 != 0 or mdta_launches[run] != ZOO_MDTA_LAUNCHES[run]:
             raise AssertionError(f"[zoo] {run}: mdta_gram launches f32 {mdta_f32}, bf16 "
                                  f"{mdta_launches[run]}, expected 0 and {ZOO_MDTA_LAUNCHES[run]}")
+        if qkv_f32 != 0 or qkv_launches[run] != ZOO_QKV_LAUNCHES[run]:
+            raise AssertionError(f"[zoo] {run}: window_qkv launches f32 {qkv_f32}, bf16 "
+                                 f"{qkv_launches[run]}, expected 0 and {ZOO_QKV_LAUNCHES[run]}")
         del engines, model, cpu_model, x, y32, y16
         torch.cuda.empty_cache()
     _zoo_fit(tmp)
     say(f"[zoo] ({time.perf_counter() - t_all:.2f} s)")
-    return wa_launches, mlp_launches, mdta_launches
+    return wa_launches, mlp_launches, mdta_launches, qkv_launches
 
 
 def _zoo_fit(tmp: Path) -> None:
@@ -3290,6 +3418,7 @@ def main() -> int:
                                                   phase_kernel_k3(build_logs))
         wa_entries = phase_kernel_window_attention(build_logs)
         mlp_entry = phase_kernel_mlp_block(build_logs)
+        qkv_entries = phase_kernel_window_qkv(build_logs)
         mdta_entries = phase_kernel_mdta_gram(build_logs)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_smoke_") as tmp:
             launches, ctx = phase_serve(Path(tmp))
@@ -3305,7 +3434,7 @@ def main() -> int:
         phase_train_routes()
         phase_profile(ctx)
         with tempfile.TemporaryDirectory(prefix="xmmsr_chip_zoo_") as tmp:
-            zoo_wa, zoo_mlp, zoo_mdta = phase_zoo(Path(tmp))
+            zoo_wa, zoo_mlp, zoo_mdta, zoo_qkv = phase_zoo(Path(tmp))
         for entry, name in zip(kernels, ("f32", "bf16")):
             entry["launches"] = launches[name]
             entry["launches_end2end"] = e2e_launches[name]["K2"]
@@ -3317,13 +3446,15 @@ def main() -> int:
         for entry in wa_entries:
             entry["launches_per_forward"] = zoo_wa[entry["run"]]
         mlp_entry["launches_per_forward"] = zoo_mlp
+        for entry in qkv_entries:
+            entry["launches_per_forward"] = zoo_qkv[entry["run"]]
         for entry in mdta_entries:
             entry["launches_per_forward"] = zoo_mdta["restormer_denoise"]
         p_entry["launches_end2end"] = e2e_launches["int8 calibrate"]["P"]
         k3_entry["launches_end2end"] = k3_fused["launches_end2end"] = (
             e2e_launches["int8 calibrate"]["K3"])
         kernels += [k2_c128, k2_c128_f32, s2d_f32, s2d_bf16, p_entry, k3_entry, k3_fused, k3_taps,
-                    *wa_entries, mlp_entry, *mdta_entries]
+                    *wa_entries, mlp_entry, *qkv_entries, *mdta_entries]
         say(f"[done] {time.perf_counter() - t_start:.2f} s")
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": device}))

@@ -6,7 +6,11 @@ The port of the JAX package's `models/hat.py`:
   pool, 1x1 squeeze / excite, sigmoid).
 * HAB: window attention beside a CAB branch scaled by `conv_scale` (0.01),
   then the MLP. Its attention is `swin_common.WindowAttention` (JAX's
-  `HATWindowAttention` has the same parameters and math).
+  `HATWindowAttention` has the same parameters and math). It keeps its own
+  `norm1`, whose image the CAB reads too, and hands that image to
+  `ops/window_qkv.py: window_qkv` with no norm: the roll, the partition,
+  the qkv Dense and its bias, on the kernel in bf16 serving; the rows go to
+  `WindowAttention.attend`.
 * OCAB: overlapping cross-attention. Queries come from non-overlapping
   `ws` windows, keys and values from `ws + overlap` windows, which
   `unfold_overlap_windows` cuts with `F.unfold` on the NCHW view,
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.precision import lrelu, scalar_like
+from ..ops.window_qkv import window_qkv
 from ..utils.profiling import annotate
 from .swin_common import (
     LayerNorm,
@@ -143,14 +148,13 @@ class HAB(nn.Module):
         b, l, c = x.shape
         ws, shift = self.ws, self.shift
         shortcut = x
-        img = self.norm1(x).reshape(b, h, w, c)
-        conv_x = self.conv_block(img).reshape(b, l, c)
-        shifted = torch.roll(img, (-shift, -shift), dims=(1, 2)) if shift > 0 else img
-        xw = window_partition(shifted, ws).reshape(-1, ws * ws, c)
+        normed = self.norm1(x)
+        conv_x = self.conv_block(normed.reshape(b, h, w, c)).reshape(b, l, c)
+        qkv = window_qkv(normed, x_size, ws, shift, None, self.attn.qkv)
         mask = shift_mask(h, w, ws, shift, x.device)
         if mask is not None:
             HAB.masked_attn_calls += 1
-        attn = self.attn(xw, mask)
+        attn = self.attn.attend(qkv, mask)
         attn = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
         if shift > 0:
             attn = torch.roll(attn, (shift, shift), dims=(1, 2))

@@ -25,10 +25,15 @@ The port of the JAX package's `models/swin_common.py`:
   differs); the bias and mask are added in f32, the softmax runs in f32 and
   its normalised result is cast back for `attn @ v`; LayerNorm takes its statistics and its affine step in f32 and rounds
   once (Flax's `LayerNorm` promotes to f32); a Python-float scalar meets a
-  bf16 tensor rounded to bf16 first (`ops/precision.py: scalar_like`). The
-  blocks' MLP half, `x + mlp(norm2(x))`, runs in bf16 serving as one
-  hand-written kernel with the same roundings (`mlp_residual`,
-  `ops/mlp_block.py`).
+  bf16 tensor rounded to bf16 first (`ops/precision.py: scalar_like`).
+* Three routes put a block on hand-written kernels in bf16 serving, each
+  with the same roundings as the ops it replaces, which the CPU, f32 and
+  autograd run: the qkv side, `norm1`, the cyclic shift, the window
+  partition, the qkv Dense and its bias (`ops/window_qkv.py: window_qkv`,
+  called by `SwinTransformerBlock` and HAT's HAB, which hand its rows to
+  `WindowAttention.attend`); the attention (`attention_core`,
+  `ops/window_attention.py`); and the MLP half, `x + mlp(norm2(x))`
+  (`mlp_residual`, `ops/mlp_block.py`).
 * Initializers: timm's trunc_normal(std 0.02, cut at +-2 absolute) for
   Linear weights and bias tables with zero Linear biases, torch's Conv2d
   default (U(+-1/sqrt(fan_in))) for convolutions, ones and zeros for norms
@@ -57,6 +62,7 @@ from torch import nn
 
 from ..ops.mlp_block import mlp_block
 from ..ops.window_attention import window_attention
+from ..ops.window_qkv import window_qkv
 from .rrdb import _checkpointed, pixel_shuffle
 
 Tensor = torch.Tensor
@@ -303,10 +309,16 @@ class WindowAttention(nn.Module):
         self.proj = dense_torch_init(dim, dim)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-        b_, n, c = x.shape
-        nh = self.num_heads
-        qkv = linear(self.qkv, x).reshape(b_, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
-        table = self.relative_position_bias_table.to(x.dtype)
+        return self.attend(linear(self.qkv, x), mask)
+
+    def attend(self, qkv: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        """The attention and proj of the windows' (B*nW, N, 3C) qkv rows, as
+        `forward` computes them after its qkv projection: the Swin block and
+        HAB hand over rows `ops/window_qkv.py: window_qkv` computed."""
+        b_, n, c3 = qkv.shape
+        c, nh = c3 // 3, self.num_heads
+        qkv = qkv.reshape(b_, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+        table = self.relative_position_bias_table.to(qkv.dtype)
         bias = table[self.relative_position_index.view(-1)].view(n, n, nh).permute(2, 0, 1)
         out = attention_core(qkv[0], qkv[1], qkv[2], self.scale, bias, mask)
         return linear(self.proj, out.transpose(1, 2).reshape(b_, n, c))
@@ -332,11 +344,8 @@ class SwinTransformerBlock(nn.Module):
         b, l, c = x.shape
         ws, shift = self.ws, self.shift
         shortcut = x
-        x = self.norm1(x).reshape(b, h, w, c)
-        if shift > 0:
-            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        xw = window_partition(x, ws).reshape(-1, ws * ws, c)
-        attn = self.attn(xw, shift_mask(h, w, ws, shift, x.device))
+        qkv = window_qkv(x, x_size, ws, shift, self.norm1, self.attn.qkv)
+        attn = self.attn.attend(qkv, shift_mask(h, w, ws, shift, x.device))
         x = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 BUILD_TIMEOUT_S = 300
 LIBRARIES = ("dense_block", "dense_block_s2d", "int8_gemm", "conv_i8", "window_attention",
-             "mlp_block", "mdta_gram")
+             "mlp_block", "mdta_gram", "window_qkv")
 
 P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 

@@ -126,7 +126,7 @@ def plan(x: Tensor, norm: nn.Module, mlp: nn.Module) -> Plan:
     return Plan(x.numel() // c, c, h, -(-h // CHUNK))
 
 
-def _swizzle32(regions: Tensor) -> Tensor:
+def swizzle32(regions: Tensor) -> Tensor:
     """Regions (..., rows, 16) of bf16 as wgmma reads them with the 32-byte
     swizzle: in rows r with (r >> 2) & 1 the two 16-byte halves swap."""
     rows = regions.shape[-2]
@@ -156,8 +156,8 @@ def _layout(scale: Tensor, shift: Tensor, w1: Tensor, b1: Optional[Tensor], w2: 
     w1p[:h, :c] = w1
     w2p = torch.zeros((kp, hp), **bf)
     w2p[:c, :h] = w2
-    w1r = _swizzle32(w1p.view(n, CHUNK, kp // _STEP, _STEP).permute(0, 2, 1, 3))
-    w2r = _swizzle32(w2p.view(kp, n, CHUNK // _STEP, _STEP).permute(1, 2, 0, 3))
+    w1r = swizzle32(w1p.view(n, CHUNK, kp // _STEP, _STEP).permute(0, 2, 1, 3))
+    w2r = swizzle32(w2p.view(kp, n, CHUNK // _STEP, _STEP).permute(1, 2, 0, 3))
     image = torch.cat([w1r.reshape(n, -1), w2r.reshape(n, -1)], dim=1).contiguous()
     vec = torch.zeros(3 * kp + hp, **bf)
     vec[:c] = scale
@@ -183,19 +183,24 @@ def _stamp(tensors) -> Optional[tuple]:
         return None
 
 
+def cached_layout(cache: "weakref.WeakKeyDictionary[nn.Module, tuple]", owner: nn.Module,
+                  params, device: torch.device, layout) -> Tuple[Tensor, Tensor]:
+    """`layout(*params)` of the parameters in bf16 on `device`, made once per
+    parameter version (`_stamp`) and kept in `cache` beside `owner`."""
+    key = _stamp(params)
+    hit = cache.get(owner)
+    if key is not None and hit is not None and hit[0] == key and hit[1][0].device == device:
+        return hit[1]
+    made = layout(*[None if t is None else t.detach().to(device, torch.bfloat16) for t in params])
+    if key is not None:
+        cache[owner] = (key, made)
+    return made
+
+
 def weights_of(norm: nn.Module, mlp: nn.Module, device: torch.device) -> Tuple[Tensor, Tensor]:
     """`_layout` of the layers' parameters in bf16 on `device`, made once per
     parameter version and kept beside `mlp`."""
-    params = _params(norm, mlp)
-    stamp = _stamp(params)
-    hit = _CACHE.get(mlp)
-    if stamp is not None and hit is not None and hit[0] == stamp and hit[1].device == device:
-        return hit[1], hit[2]
-    bf = [None if t is None else t.detach().to(device, torch.bfloat16) for t in params]
-    image, vec = _layout(*bf)
-    if stamp is not None:
-        _CACHE[mlp] = (stamp, image, vec)
-    return image, vec
+    return cached_layout(_CACHE, mlp, _params(norm, mlp), device, _layout)
 
 
 def _launch(x: Tensor, norm: nn.Module, mlp: nn.Module) -> Tensor:
