@@ -176,13 +176,32 @@ def test_forward_emits_each_span_and_counts_each_group(f32, tmp_path, monkeypatc
     (path,) = tmp_path.glob("*.pt.trace.json")
     names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
              if e.get("ph") == "X" and str(e.get("name")).startswith("zoo.")]
-    assert {n: names.count(n) for n in set(names)} == {"zoo.rdg": 2, "zoo.dense": 10}
+    assert {n: names.count(n) for n in set(names)} == {
+        "zoo.rdg": 2, "zoo.dense": 10,
+        "zoo.qkv": 10, "zoo.attention": 10, "zoo.proj": 10, "zoo.mlp": 10}
     entered = []  # with no profiler recording, no span is entered
     for mod in (torch.profiler, torch.autograd.profiler):
         monkeypatch.setattr(mod, "record_function", lambda *a, **k: entered.append(a))
     with torch.inference_mode():
         engine.model(x[:1])
     assert entered == []
+
+
+def test_swin_block_stages_nest_in_order_inside_each_group(f32):
+    """Each RDG holds five Swin blocks' four stages, one after another, each
+    block's stages before its dense step, and no stage inside a dense step."""
+    _, engine, x, _ = f32
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.inference_mode():
+            engine.model(x[:1])
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.name.startswith("zoo.")), key=lambda s: s[1])
+    rdgs = [s for s in spans if s[0] == "zoo.rdg"]
+    assert len(rdgs) == 2
+    for _, a0, b0 in rdgs:
+        assert [n for n, a, b in spans if a0 <= a and b <= b0 and n != "zoo.rdg"] == 5 * [
+            "zoo.qkv", "zoo.attention", "zoo.proj", "zoo.mlp", "zoo.dense"]
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]) if a[0] != "zoo.rdg")
 
 
 @pytest.mark.parametrize("change,what", [

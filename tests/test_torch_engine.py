@@ -262,7 +262,7 @@ def test_run_tiles_spans_nest_by_engine_stage(flat, tmp_path):
     print({k: len(v) for k, v in spans.items()})
     assert {k: len(v) for k, v in spans.items()} == {  # no event to wait on, on the CPU
         "engine.call": 1, "engine.launch": 3, "engine.upload": 6, "engine.forward": 3,
-        "engine.readback": 3, "engine.gather": 3,
+        "engine.readback": 3, "engine.first_touch": 3, "engine.gather": 3,
     }
     assert all(_inside(s, spans["engine.call"]) for v in spans.values() for s in v)
     for stage in ("engine.upload", "engine.forward"):
@@ -270,20 +270,74 @@ def test_run_tiles_spans_nest_by_engine_stage(flat, tmp_path):
     assert not any(_inside(s, spans["engine.launch"]) for s in spans["engine.readback"])
     for readback in spans["engine.readback"]:
         assert sum(_inside(g, [readback]) for g in spans["engine.gather"]) == 1
+        assert sum(_inside(t, [readback]) for t in spans["engine.first_touch"]) == 1
     last_readback_end = max(b for _, b in spans["engine.readback"])
     assert all(a < last_readback_end for a, _ in spans["engine.gather"])
 
 
-def test_serving_enters_no_record_function_with_the_profiler_off(flat, monkeypatch):
-    engine = _port_engine(flat)
-    raw = np.random.default_rng(11).uniform(0, 2e-3, (3, *NATIVE)).astype(np.float32)
+def test_readback_touches_the_rows_before_it_waits_and_gathers(tmp_path):
+    """`_Readback.result` of a chunk with an event (as on a card): inside
+    `engine.readback`, the first touch of the output rows, then the wait on
+    the event, then the gather, one after another."""
+    from xmm_superres_denoise_torch.infer.run_file import _Readback
+
+    class Event:  # a recorded CUDA event, already complete
+        def synchronize(self):
+            pass
+
+    bufs = [torch.arange(12, dtype=torch.float32).reshape(3, 2, 2), torch.ones(3, 2)]
+    chunk = _Readback([(bufs, Event())], valid=3)
+    outs = chunk.empty(5)
+    with tprof.trace(tmp_path):
+        chunk.result(outs, row=1)
+    np.testing.assert_array_equal(outs[0][1:4], bufs[0].numpy())
+    np.testing.assert_array_equal(outs[1][1:4], bufs[1].numpy())
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    spans = _engine_spans(path)
+    assert {k: len(v) for k, v in spans.items()} == {
+        "engine.readback": 1, "engine.first_touch": 1, "engine.readback_wait": 1,
+        "engine.gather": 1}
+    (touch,), (wait,), (gather,) = (spans[k] for k in (
+        "engine.first_touch", "engine.readback_wait", "engine.gather"))
+    assert all(_inside(s, spans["engine.readback"]) for s in (touch, wait, gather))
+    assert touch[1] <= wait[0] and wait[1] <= gather[0]
+
+
+def _zoo_engine():
+    """A SwinIR of two Swin blocks (the second shifted) at 16^2 -> 32^2, its
+    weights seeded."""
+    from benchmark import harness
+    from benchmark.programs import swinir as program
+    from benchmark.reference import swinir as reference
+
+    cfg = dict(harness.load_cell("swinir_bf16_bulk")["cfg"], embed_dim=12, depths=[2],
+               num_heads=[2], window_size=4, img_size=16, patch_size=1, lr_res=16, hr_res=32,
+               batch_size=2)
+    params = reference.make_params(cfg, 0, "cpu", torch.float32)
+    return InferenceEngine(program.model_config(cfg), program.dataset_config(cfg), params,
+                           device="cpu")
+
+
+def _serve_with_record_function_counted(engine, raw, monkeypatch):
     entered = []
     for mod in (torch.profiler, torch.autograd.profiler):
         monkeypatch.setattr(mod, "record_function", lambda *a, **k: entered.append(a))
     engine.run_tiles(raw, batch_size=2)
     engine.predict_tiles(raw, batch_size=2)
     engine(raw[0])
-    assert entered == []
+    return entered
+
+
+def test_serving_enters_no_record_function_with_the_profiler_off(flat, monkeypatch):
+    engine = _port_engine(flat)
+    raw = np.random.default_rng(11).uniform(0, 2e-3, (3, *NATIVE)).astype(np.float32)
+    assert _serve_with_record_function_counted(engine, raw, monkeypatch) == []
+
+
+def test_zoo_serving_enters_no_record_function_with_the_profiler_off(monkeypatch):
+    """The same through a SwinIR, whose blocks open the `zoo.*` stage spans."""
+    raw = np.random.default_rng(11).uniform(0, 2e-3, (3, 14, 13)).astype(np.float32)
+    assert _serve_with_record_function_counted(_zoo_engine(), raw, monkeypatch) == []
 
 
 def test_out_of_memory_retry_stays_inside_one_call_span(flat, tmp_path, monkeypatch):

@@ -160,13 +160,39 @@ def test_forward_emits_each_span_and_counts_each_block(f32, tmp_path, monkeypatc
     (path,) = tmp_path.glob("*.pt.trace.json")
     names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
              if e.get("ph") == "X" and str(e.get("name")).startswith("zoo.")]
-    assert {n: names.count(n) for n in set(names)} == {"zoo.hab": 4, "zoo.cab": 4, "zoo.ocab": 2}
+    assert {n: names.count(n) for n in set(names)} == {
+        "zoo.hab": 4, "zoo.cab": 4, "zoo.ocab": 2,
+        "zoo.qkv": 4, "zoo.attention": 4, "zoo.proj": 4, "zoo.mlp": 4}
     entered = []  # with no profiler recording, no span is entered
     for mod in (torch.profiler, torch.autograd.profiler):
         monkeypatch.setattr(mod, "record_function", lambda *a, **k: entered.append(a))
     with torch.inference_mode():
         engine.model(x[:1])
     assert entered == []
+
+
+def test_hab_stages_nest_in_order_beside_the_cab_and_ocab_opens_none(f32):
+    """Each HAB holds its four stages one after another and its CAB between
+    the attention and proj, inside no stage; OCAB's attention and MLP open
+    no stage span."""
+    _, engine, x, _ = f32
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.inference_mode():
+            engine.model(x[:1])
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.name.startswith("zoo.")), key=lambda s: s[1])
+
+    def inside(outer):
+        return [n for n, a, b in spans if outer[1] <= a and b <= outer[2] and (n, a, b) != outer]
+
+    habs = [s for s in spans if s[0] == "zoo.hab"]
+    assert len(habs) == 4
+    for hab in habs:
+        assert inside(hab) == ["zoo.qkv", "zoo.attention", "zoo.cab", "zoo.proj", "zoo.mlp"]
+    for ocab in (s for s in spans if s[0] == "zoo.ocab"):
+        assert inside(ocab) == []
+    for stage in (s for s in spans if s[0] in ("zoo.qkv", "zoo.attention", "zoo.proj", "zoo.mlp")):
+        assert inside(stage) == []
 
 
 # kernel names of one bf16 HAT call on an NVIDIA H100 (torch 2.11, CUDA 12.8)

@@ -157,13 +157,29 @@ def test_forward_emits_each_span_and_counts_each_block(f32, tmp_path, monkeypatc
     (path,) = tmp_path.glob("*.pt.trace.json")
     names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
              if e.get("ph") == "X" and str(e.get("name")).startswith("zoo.")]
-    assert {n: names.count(n) for n in set(names)} == {"zoo.mdta": 44, "zoo.gdfn": 44}
+    assert {n: names.count(n) for n in set(names)} == {
+        "zoo.mdta": 44, "zoo.gdfn": 44, "zoo.channel_norm": 88}
     entered = []  # with no profiler recording, no span is entered
     for mod in (torch.profiler, torch.autograd.profiler):
         monkeypatch.setattr(mod, "record_function", lambda *a, **k: entered.append(a))
     with torch.inference_mode():
         engine.model(x[:1])
     assert entered == []
+
+
+def test_each_block_norms_before_its_mdta_and_its_gdfn(f32):
+    """`zoo.channel_norm` twice a block, beside MDTA's and GDFN's spans: in
+    time order norm, MDTA, norm, GDFN in each of the 44 blocks, no span
+    inside another."""
+    _, engine, x, _ = f32
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.inference_mode():
+            engine.model(x[:1])
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.name.startswith("zoo.")), key=lambda s: s[1])
+    assert [n for n, _, _ in spans] == 44 * [
+        "zoo.channel_norm", "zoo.mdta", "zoo.channel_norm", "zoo.gdfn"]
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
 
 
 @pytest.mark.parametrize("key,value", [("num_blocks", [4, 6, 6, 6]), ("num_refinement_blocks", 2),

@@ -254,3 +254,82 @@ def test_mdta_and_channel_layer_norm_match_jax():
         check(run_port(tn, x), want, F32_TOL, f"ChannelLayerNorm f32 {with_bias=}")
         check(run_port(tn, x, dtype=torch.bfloat16), jax_apply(jn, vn, x, dtype=jnp.bfloat16),
               BF16_TOL, f"ChannelLayerNorm bf16 {with_bias=}", scale=want)
+
+
+# --------------------------------------------------------------------------
+# the attention split and the Swin block's stage spans
+# --------------------------------------------------------------------------
+
+STAGES = ["zoo.qkv", "zoo.attention", "zoo.proj", "zoo.mlp"]
+
+
+def _seeded_block(shift, dtype):
+    blk = tsc.SwinTransformerBlock(C, (8, 8), HEADS, window_size=4, shift_size=shift,
+                                   mlp_ratio=2.0)
+    tsc.reset_zoo_parameters(blk, torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(6)))
+    return blk.to(dtype).eval()
+
+
+def _unsplit_attend(attn, qkv, mask):
+    """The attention and proj of (B*nW, N, 3C) rows as one function, the
+    composition before `attend` and `project` split it."""
+    b_, n, c3 = qkv.shape
+    c, nh = c3 // 3, attn.num_heads
+    qkv = qkv.reshape(b_, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+    table = attn.relative_position_bias_table.to(qkv.dtype)
+    bias = table[attn.relative_position_index.view(-1)].view(n, n, nh).permute(2, 0, 1)
+    out = tsc.attention_core(qkv[0], qkv[1], qkv[2], attn.scale, bias, mask)
+    return tsc.linear(attn.proj, out.transpose(1, 2).reshape(b_, n, c))
+
+
+def _unsplit_block(blk, x, x_size):
+    h, w = x_size
+    b, l, c = x.shape
+    ws, shift = blk.ws, blk.shift
+    qkv = tsc.window_qkv(x, x_size, ws, shift, blk.norm1, blk.attn.qkv)
+    attn = _unsplit_attend(blk.attn, qkv, tsc.shift_mask(h, w, ws, shift, x.device))
+    y = tsc.window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
+    if shift > 0:
+        y = torch.roll(y, (shift, shift), dims=(1, 2))
+    x = x + y.reshape(b, l, c)
+    return tsc.mlp_residual(x, blk.norm2, blk.mlp, 0.0, None)
+
+
+@pytest.mark.parametrize("shift", [0, 2], ids=["W-MSA", "SW-MSA"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attend_then_project_is_the_unsplit_composition_bitwise(shift, dtype):
+    blk = _seeded_block(shift, dtype)
+    x = torch.from_numpy(_normal((2, 64, C), seed=12)).to(dtype)
+    xw = torch.from_numpy(_normal((8, 16, C), seed=13)).to(dtype)
+    mask = tsc.shift_mask(8, 8, 4, shift, "cpu")
+    with torch.inference_mode():
+        qkv = tsc.linear(blk.attn.qkv, xw)
+        assert torch.equal(blk.attn.project(blk.attn.attend(qkv, mask)),
+                           _unsplit_attend(blk.attn, qkv, mask))
+        assert torch.equal(blk.attn(xw, mask), _unsplit_attend(blk.attn, qkv, mask))
+        assert torch.equal(blk(x, (8, 8)), _unsplit_block(blk, x, (8, 8)))
+
+
+def _zoo_spans(prof):
+    """(name, start, end) of the `zoo.*` spans a CPU profile recorded, by start."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name.startswith("zoo.")), key=lambda s: s[1])
+
+
+@pytest.mark.parametrize("shift", [0, 2], ids=["W-MSA", "SW-MSA"])
+def test_swin_block_opens_its_four_stages_in_order(shift):
+    blk = _seeded_block(shift, torch.float32)
+    x = torch.from_numpy(_normal((1, 64, C), seed=14))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.inference_mode():
+            blk(x, (8, 8))
+    spans = _zoo_spans(prof)
+    assert [n for n, _, _ in spans] == STAGES
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))  # one after another
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.inference_mode():
+            blk.attn(torch.from_numpy(_normal((4, 16, C), seed=15)))
+    assert _zoo_spans(prof) == []  # the module alone, as OCAB's helpers: no stage span

@@ -238,7 +238,8 @@ def test_call_sites_hand_attend_the_rows_forward_made(kind, dtype):
     with torch.no_grad():
         norm, img = (blk.norm1, x) if kind == "swin" else (None, blk.norm1(x))
         qkv = window_qkv(img, (8, 8), blk.ws, blk.shift, norm, blk.attn.qkv)
-        got = blk.attn.attend(qkv, tsc.shift_mask(8, 8, blk.ws, blk.shift, x.device))
+        got = blk.attn.project(
+            blk.attn.attend(qkv, tsc.shift_mask(8, 8, blk.ws, blk.shift, x.device)))
         want = _attention_half(blk, x, (8, 8))
     assert torch.equal(got, want)
 

@@ -98,10 +98,11 @@ class _Readback:
             if outs is None:
                 outs = self.empty(self.valid)
             dst = [torch.from_numpy(o[row : row + self.valid]) for o in outs]
-            for d in dst:
-                # fresh pages fault on first touch: take that cost while the
-                # card still runs this chunk, so the copy after the wait does not
-                d.zero_()
+            with annotate("engine.first_touch"):
+                for d in dst:
+                    # fresh pages fault on first touch: take that cost while the
+                    # card still runs this chunk, so the copy after the wait does not
+                    d.zero_()
             for _, event in self.parts:
                 self._wait(event)
             with annotate("engine.gather"):

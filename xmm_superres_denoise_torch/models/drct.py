@@ -16,10 +16,12 @@ back to `dim`, with a 0.2-scaled residual.
 
 Tracing: each RDG forward is a span (`zoo.rdg`) and so is each of its five
 dense steps, the adjust convolution with its LeakyReLU and concatenation
-(`zoo.dense`; `utils/profiling.py: annotate`). The RDG counts itself in
-class attributes, process-wide as `models/hat.py: HAB.calls`: `RDG.calls`,
-and `RDG.masked_attn_calls`, its Swin blocks whose attention took the shift
-mask (blocks 2 and 4 when the window is not clamped).
+(`zoo.dense`; `utils/profiling.py: annotate`); each Swin block inside it
+opens its four stage spans (`swin_common.SwinTransformerBlock`). The RDG
+counts itself in class attributes, process-wide as `models/hat.py:
+HAB.calls`: `RDG.calls`, and `RDG.masked_attn_calls`, its Swin blocks whose
+attention took the shift mask (blocks 2 and 4 when the window is not
+clamped).
 """
 
 from __future__ import annotations

@@ -20,12 +20,16 @@ The port of the JAX package's `models/hat.py`:
   checkpoints each HAB, as the JAX package remats them.
 
 Tracing: each HAB, CAB and OCAB forward is a span (`zoo.hab`, `zoo.cab`,
-`zoo.ocab`; `utils/profiling.py: annotate`) and counts itself in a class
-attribute, process-wide as `ops/dense_block.py: dense_block.launches`:
-`HAB.calls`, `CAB.calls`, `OCAB.calls`, and `HAB.masked_attn_calls`, the
-HABs whose attention took the shift mask. A HAB checkpointed under
-autograd (`use_checkpoint`) runs its forward again in the backward, so
-there its counts double; serving runs under `inference_mode`.
+`zoo.ocab`; `utils/profiling.py: annotate`); inside `zoo.hab` the block's
+four stages are spans as in `swin_common.SwinTransformerBlock` (`zoo.qkv`
+with HAB's own `norm1`, `zoo.attention`, `zoo.proj` with the three-term
+residual, `zoo.mlp`), the CAB beside them between the attention and proj.
+Each HAB, CAB and OCAB forward counts itself in a class attribute,
+process-wide as `ops/dense_block.py: dense_block.launches`: `HAB.calls`,
+`CAB.calls`, `OCAB.calls`, and `HAB.masked_attn_calls`, the HABs whose
+attention took the shift mask. A HAB checkpointed under autograd
+(`use_checkpoint`) runs its forward again in the backward, so there its
+counts double; serving runs under `inference_mode`.
 
 The production config (img 416, patch 16 -> input_resolution 26 > window
 16) keeps window 16 WITH shifted windows, unlike the other zoo members.
@@ -147,20 +151,23 @@ class HAB(nn.Module):
         h, w = x_size
         b, l, c = x.shape
         ws, shift = self.ws, self.shift
-        shortcut = x
-        normed = self.norm1(x)
+        with annotate("zoo.qkv"):
+            normed = self.norm1(x)
+            qkv = window_qkv(normed, x_size, ws, shift, None, self.attn.qkv)
+        with annotate("zoo.attention"):
+            mask = shift_mask(h, w, ws, shift, x.device)
+            if mask is not None:
+                HAB.masked_attn_calls += 1
+            attn = self.attn.attend(qkv, mask)
         conv_x = self.conv_block(normed.reshape(b, h, w, c)).reshape(b, l, c)
-        qkv = window_qkv(normed, x_size, ws, shift, None, self.attn.qkv)
-        mask = shift_mask(h, w, ws, shift, x.device)
-        if mask is not None:
-            HAB.masked_attn_calls += 1
-        attn = self.attn.attend(qkv, mask)
-        attn = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
-        if shift > 0:
-            attn = torch.roll(attn, (shift, shift), dims=(1, 2))
-        x = (shortcut + drop_path(attn.reshape(b, l, c), self.drop_path_rate, generator)
-             + conv_x * scalar_like(conv_x, self.conv_scale))
-        return mlp_residual(x, self.norm2, self.mlp, self.drop_path_rate, generator)
+        with annotate("zoo.proj"):
+            attn = window_reverse(self.attn.project(attn).reshape(-1, ws, ws, c), ws, h, w)
+            if shift > 0:
+                attn = torch.roll(attn, (shift, shift), dims=(1, 2))
+            x = (x + drop_path(attn.reshape(b, l, c), self.drop_path_rate, generator)
+                 + conv_x * scalar_like(conv_x, self.conv_scale))
+        with annotate("zoo.mlp"):
+            return mlp_residual(x, self.norm2, self.mlp, self.drop_path_rate, generator)
 
 
 def unfold_overlap_windows(x: Tensor, ws: int, owin: int) -> Tensor:

@@ -20,7 +20,9 @@ The port of the JAX package's `models/restormer.py`:
 Tracing: each MDTA and GDFN forward is a span (`zoo.mdta`, `zoo.gdfn`;
 `utils/profiling.py: annotate`) and counts itself in a class attribute,
 process-wide as `models/hat.py: HAB.calls`: `MDTA.calls`, `GDFN.calls`,
-one each per `RestormerBlock` forward.
+one each per `RestormerBlock` forward. Each `ChannelLayerNorm` forward,
+its statistics and its passes, is a span too (`zoo.channel_norm`), two a
+block beside MDTA's and GDFN's.
 """
 
 from __future__ import annotations
@@ -50,13 +52,14 @@ class ChannelLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim)) if with_bias else None
 
     def forward(self, x: Tensor) -> Tensor:
-        weight = self.weight.to(x.dtype)
-        eps = scalar_like(x, 1e-5)
-        var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
-        if self.bias is None:
-            return x / torch.sqrt(var + eps) * weight
-        mu = torch.mean(x, dim=-1, keepdim=True)
-        return (x - mu) / torch.sqrt(var + eps) * weight + self.bias.to(x.dtype)
+        with annotate("zoo.channel_norm"):
+            weight = self.weight.to(x.dtype)
+            eps = scalar_like(x, 1e-5)
+            var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+            if self.bias is None:
+                return x / torch.sqrt(var + eps) * weight
+            mu = torch.mean(x, dim=-1, keepdim=True)
+            return (x - mu) / torch.sqrt(var + eps) * weight + self.bias.to(x.dtype)
 
 
 def depthwise_conv3x3(features: int, use_bias: bool) -> nn.Conv2d:

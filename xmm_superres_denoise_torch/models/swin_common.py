@@ -34,6 +34,13 @@ The port of the JAX package's `models/swin_common.py`:
   `WindowAttention.attend`); the attention (`attention_core`,
   `ops/window_attention.py`); and the MLP half, `x + mlp(norm2(x))`
   (`mlp_residual`, `ops/mlp_block.py`).
+* Tracing: a Swin block's forward, and HAT's HAB, run as four spans
+  (`utils/profiling.py: annotate`) that cover the block between them:
+  `zoo.qkv` (`window_qkv`), `zoo.attention` (the shift mask, the bias
+  gather, `attention_core`), `zoo.proj` (`WindowAttention.project`, the
+  window reverse, the reverse roll, the residual add) and `zoo.mlp`
+  (`mlp_residual`). `WindowAttention.forward` and the shared helpers open
+  none, so HAT's OCAB stays under its own span.
 * Initializers: timm's trunc_normal(std 0.02, cut at +-2 absolute) for
   Linear weights and bias tables with zero Linear biases, torch's Conv2d
   default (U(+-1/sqrt(fan_in))) for convolutions, ones and zeros for norms
@@ -63,6 +70,7 @@ from torch import nn
 from ..ops.mlp_block import mlp_block
 from ..ops.window_attention import window_attention
 from ..ops.window_qkv import window_qkv
+from ..utils.profiling import annotate
 from .rrdb import _checkpointed, pixel_shuffle
 
 Tensor = torch.Tensor
@@ -309,19 +317,24 @@ class WindowAttention(nn.Module):
         self.proj = dense_torch_init(dim, dim)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-        return self.attend(linear(self.qkv, x), mask)
+        return self.project(self.attend(linear(self.qkv, x), mask))
 
     def attend(self, qkv: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-        """The attention and proj of the windows' (B*nW, N, 3C) qkv rows, as
-        `forward` computes them after its qkv projection: the Swin block and
-        HAB hand over rows `ops/window_qkv.py: window_qkv` computed."""
+        """The attention of the windows' (B*nW, N, 3C) qkv rows, (B*nW, nh,
+        N, d), as `forward` computes it after its qkv projection: the Swin
+        block and HAB hand over rows `ops/window_qkv.py: window_qkv`
+        computed, and `project` the result."""
         b_, n, c3 = qkv.shape
         c, nh = c3 // 3, self.num_heads
         qkv = qkv.reshape(b_, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
         table = self.relative_position_bias_table.to(qkv.dtype)
         bias = table[self.relative_position_index.view(-1)].view(n, n, nh).permute(2, 0, 1)
-        out = attention_core(qkv[0], qkv[1], qkv[2], self.scale, bias, mask)
-        return linear(self.proj, out.transpose(1, 2).reshape(b_, n, c))
+        return attention_core(qkv[0], qkv[1], qkv[2], self.scale, bias, mask)
+
+    def project(self, out: Tensor) -> Tensor:
+        """proj of `attend`'s (B*nW, nh, N, d) heads: (B*nW, N, C)."""
+        b_, nh, n, d = out.shape
+        return linear(self.proj, out.transpose(1, 2).reshape(b_, n, nh * d))
 
 
 class SwinTransformerBlock(nn.Module):
@@ -343,14 +356,17 @@ class SwinTransformerBlock(nn.Module):
         h, w = x_size
         b, l, c = x.shape
         ws, shift = self.ws, self.shift
-        shortcut = x
-        qkv = window_qkv(x, x_size, ws, shift, self.norm1, self.attn.qkv)
-        attn = self.attn.attend(qkv, shift_mask(h, w, ws, shift, x.device))
-        x = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
-        if shift > 0:
-            x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + drop_path(x.reshape(b, l, c), self.drop_path_rate, generator)
-        return mlp_residual(x, self.norm2, self.mlp, self.drop_path_rate, generator)
+        with annotate("zoo.qkv"):
+            qkv = window_qkv(x, x_size, ws, shift, self.norm1, self.attn.qkv)
+        with annotate("zoo.attention"):
+            attn = self.attn.attend(qkv, shift_mask(h, w, ws, shift, x.device))
+        with annotate("zoo.proj"):
+            attn = window_reverse(self.attn.project(attn).reshape(-1, ws, ws, c), ws, h, w)
+            if shift > 0:
+                attn = torch.roll(attn, (shift, shift), dims=(1, 2))
+            x = x + drop_path(attn.reshape(b, l, c), self.drop_path_rate, generator)
+        with annotate("zoo.mlp"):
+            return mlp_residual(x, self.norm2, self.mlp, self.drop_path_rate, generator)
 
 
 class BasicLayer(nn.Module):
